@@ -1,0 +1,128 @@
+"""Preset scenes: the reference's bundled setups and the procedural mesh.
+
+Counterpart of ``realtrace_tpu/apps/scenes.py``. Ref: Serial/lumina.cpp:292-386
+(serial app scene) and the commented-out sphere/plane scene
+(Serial/lumina.cpp:312-360).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from realtrace_tpu_torch.core.types import Materials, Scene, SceneBuilder
+from realtrace_tpu_torch.io.obj import load_obj_scene
+from realtrace_tpu_torch.render.camera import Camera
+
+# the serial app's framing (Serial/lumina.cpp:292-386)
+SERIAL_CAM = dict(position=(60, 60, 0), target=(0, 0, 0), up=(0, 1, 0), fovy=45.0)
+
+
+def sphere_plane_scene(dtype=torch.float32, device="cpu") -> tuple[Scene, dict]:
+    """Sphere + reflective floor quad + point light (Serial/lumina.cpp:323-357):
+    red sphere at (4,0,4) r=3, grey floor at y=-3."""
+    b = SceneBuilder(dtype=dtype, device=device)
+    b.ambient = (1.0, 1.0, 1.0)
+    b.background = (0.1, 0.3, 0.6)
+    b.add_sphere((4.0, 0.0, 4.0), 3.0, color=(0.8, 0.1, 0.0),
+                 material=b.material(ka=0.2, kd=0.9, ks=0.4, kr=0.0, kt=0.0, eta=1.0))
+    b.add_plane((10, -3, 10), (-10, -3, 10), (-10, -3, -10), (10, -3, -10),
+                color=(0.5, 0.5, 0.5),
+                material=b.material(ka=0.1, kd=0.9, ks=0.2, kr=0.5, kt=0.0, eta=1.0))
+    b.add_light((0, 30, 30), (0.5, 1.0, 1.0))
+    return b.build(), dict(SERIAL_CAM)
+
+
+def _serial_builder(dtype, device) -> SceneBuilder:
+    """The serial app's lighting: ambient 1, background (0.1,0.3,0.6), light
+    at (0,30,30) with intensity (0.5,1,1)."""
+    b = SceneBuilder(dtype=dtype, device=device)
+    b.ambient = (1.0, 1.0, 1.0)
+    b.background = (0.1, 0.3, 0.6)
+    b.add_light((0, 30, 30), (0.5, 1.0, 1.0))
+    return b
+
+
+def serial_obj_scene(obj_path, texture_path=None, dtype=torch.float32, device="cpu",
+                     scale: float = 15.0,
+                     max_faces: int | None = None) -> tuple[Scene, dict]:
+    """The serial app's shipped scene: an OBJ scaled x15 with the reflective
+    OBJ material, camera (60,60,0) fovy 45. The serial app capped the mesh
+    at 2000 triangles (``max_faces=2000`` for strict parity)."""
+    b = _serial_builder(dtype, device)
+    load_obj_scene(b, obj_path, texture_path=texture_path, scale=scale, max_faces=max_faces)
+    return b.build(), dict(SERIAL_CAM)
+
+
+def _grid_triangles(p: np.ndarray, wrap_v: bool) -> np.ndarray:
+    """Two triangles per quad of a (nu, nv, 3) vertex grid, periodic in u
+    (and in v when ``wrap_v``): (nu * nv' * 2, 3, 3)."""
+    nu, nv = p.shape[:2]
+    i = np.arange(nu)[:, None]
+    j = np.arange(nv if wrap_v else nv - 1)[None, :]
+    i1, j1 = (i + 1) % nu, (j + 1) % nv
+    a, b, c, d = p[i, j], p[i1, j], p[i1, j1], p[i, j1]
+    quads = np.stack([np.stack([a, b, c], -2), np.stack([a, c, d], -2)], axis=2)
+    return quads.reshape(-1, 3, 3)
+
+
+def mesh_arrays(seed: int = 0, detail: float = 1.0):
+    """The procedural stand-in for bob (unscaled): a torus (major radius 1,
+    minor 0.35, ring in the xz plane) around a UV sphere (radius 0.6 at
+    (0, 0.5, 0)). At ``detail=1`` the torus has 96x48 quads and the sphere
+    32x24 (its pole rows hold degenerate triangles), 10,752 triangles in all;
+    ``detail`` scales both tessellations. Vertices get a small jitter from
+    ``numpy.random.default_rng(seed)``, shared by coincident vertices so the
+    mesh stays closed. Returns (tri_vertices, tri_colors), each (N, 3, 3)
+    float64; colours are a fixed function of position (standing in for the
+    texture)."""
+    rng = np.random.default_rng(seed)
+
+    def n(k):
+        return max(3, int(round(k * detail)))
+
+    nu, nv = n(96), n(48)
+    u = 2 * np.pi * np.arange(nu)[:, None] / nu
+    v = 2 * np.pi * np.arange(nv)[None, :] / nv
+    torus = np.stack([(1.0 + 0.35 * np.cos(v)) * np.cos(u),
+                      0.35 * np.sin(v) + 0 * u,
+                      (1.0 + 0.35 * np.cos(v)) * np.sin(u)], axis=-1)
+    torus += rng.uniform(-0.002, 0.002, torus.shape)
+
+    su, sv = n(32), n(24)
+    phi = 2 * np.pi * np.arange(su)[:, None] / su
+    theta = np.pi * np.arange(sv + 1)[None, :] / sv
+    sphere = np.stack([0.6 * np.sin(theta) * np.cos(phi),
+                       0.5 + 0.6 * np.cos(theta) + 0 * phi,
+                       0.6 * np.sin(theta) * np.sin(phi)], axis=-1)
+    jit = rng.uniform(-0.002, 0.002, sphere.shape)
+    jit[:, 0] = jit[0, 0]       # each pole is one vertex
+    jit[:, -1] = jit[0, -1]
+    sphere += jit
+
+    tv = np.concatenate([_grid_triangles(torus, wrap_v=True),
+                         _grid_triangles(sphere, wrap_v=False)])
+    tc = np.stack([0.55 + 0.35 * np.sin(3.0 * tv[..., 0] + 1.0),
+                   0.55 + 0.35 * np.sin(3.0 * tv[..., 1] + 2.0),
+                   0.35 + 0.25 * np.sin(3.0 * tv[..., 2] + 3.0)], axis=-1)
+    return tv, tc
+
+
+def mesh_scene(seed: int = 0, detail: float = 1.0, dtype=torch.float32,
+               device="cpu") -> tuple[Scene, dict]:
+    """``serial_obj_scene``'s camera, light, ambient, background and OBJ
+    material (``Materials.obj_default``) around the procedural mesh of
+    ``mesh_arrays``, scaled x15."""
+    tv, tc = mesh_arrays(seed, detail)
+    scene = _serial_builder(dtype, device).build()
+    return dataclasses.replace(
+        scene, tri_vertices=torch.as_tensor(15.0 * tv, dtype=dtype, device=device),
+        tri_colors=torch.as_tensor(tc, dtype=dtype, device=device),
+        tri_materials=Materials.obj_default(tv.shape[0], dtype, device)), dict(SERIAL_CAM)
+
+
+def make_camera(cam: dict, width: int, height: int, dtype=torch.float32,
+                device="cpu") -> Camera:
+    return Camera.make(cam["position"], cam["target"], cam["up"], cam["fovy"],
+                       width, height, dtype=dtype, device=device)

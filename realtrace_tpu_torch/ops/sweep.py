@@ -1,0 +1,397 @@
+"""Chunk sweep: closest-hit and occlusion queries over the median-split chunks.
+
+Counterpart of ``realtrace_tpu/ops/pallas/trace.py`` (host side) plus the
+sweep itself. Per 1024-ray tile, a conservative chunk mask lists the chunks
+any ray of the tile can enter, compacted FRONT-TO-BACK by an entry-distance
+bound; the sweep then walks each tile's list and runs the exact triangle test
+against the listed chunks only.
+
+The triangle test is written as four linear forms of the ray (the Cramer
+numerators det, t, beta, gamma), with constants stored relative to each
+chunk's centroid and the ray re-centred per chunk, so f32 cancellation stays
+at chunk scale instead of scene scale:
+
+    det  = n . rd                 tnum = d - n . ro'
+    bnum = c1 . rd - e2 . q'      gnum = c2 . rd + e1 . q'
+
+with ro' = ro - G, q' = rd x ro' (G the chunk centroid), e1 = A-B, e2 = A-C,
+n = e1 x e2, d = n . (A-G), c1 = (A-G) x e2, c2 = e1 x (A-G).
+
+``sweep`` launches the CUDA kernel (``csrc/sweep.cu``) on CUDA tensors and
+runs the plain PyTorch twin ``sweep_reference`` on CPU tensors; the twin owns
+the semantics.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+from torch import Tensor
+
+from realtrace_tpu_torch.core.types import BIG, PARK_DISTANCE, WAVEFRONT_TILE, RenderConfig, Scene
+from realtrace_tpu_torch.ops import cuda_build
+from realtrace_tpu_torch.ops.accel import effective_chunk_size, total_order_key
+
+LANES = WAVEFRONT_TILE   # rays per sweep tile (one thread block)
+NCOEF = 16               # per-triangle constants: n(3) d c1(3) e2(3) c2(3) e1(3)
+# Blocked per-ray refinement of the exact mask: tiles per block, and the
+# interval-shortlist candidates refined per tile (the tail past the cap is
+# kept un-refined, conservatively).
+EXACT_MASK_BLOCK_TILES = 32
+EXACT_GATE_CAP = 96
+# Triangle count at which the JAX package switches to its big-scene mask
+# policy (full-width exact mask behind a super-chunk gate). That policy and
+# the streaming kernel belong to a slice not ported yet.
+EXACT_MASK_MIN_TRIS = 1 << 16
+
+
+def _cross_rows(ax, ay, az, bx, by, bz):
+    return ay * bz - az * by, az * bx - ax * bz, ax * by - ay * bx
+
+
+# ---------------------------------------------------------------------------
+# scene-constant pack
+# ---------------------------------------------------------------------------
+
+def pack_tri_consts(tvc: Tensor, centroid: Tensor) -> Tensor:
+    """Per-triangle linear-form constants, chunk-centroid-relative.
+
+    tvc: (M, C, 3, 3) sorted triangle vertices; centroid: (M, 3).
+    Returns (M, C, NCOEF) f32 rows [n, d, c1, e2, c2, e1] (module docstring).
+    """
+    a = tvc[:, :, 0] - centroid[:, None, :]
+    e1 = tvc[:, :, 0] - tvc[:, :, 1]
+    e2 = tvc[:, :, 0] - tvc[:, :, 2]
+    n = torch.stack(_cross_rows(*e1.unbind(-1), *e2.unbind(-1)), dim=-1)
+    d = n[..., 0] * a[..., 0] + n[..., 1] * a[..., 1] + n[..., 2] * a[..., 2]
+    c1 = torch.stack(_cross_rows(*a.unbind(-1), *e2.unbind(-1)), dim=-1)
+    c2 = torch.stack(_cross_rows(*e1.unbind(-1), *a.unbind(-1)), dim=-1)
+    return torch.cat([n, d[..., None], c1, e2, c2, e1], dim=-1).contiguous()
+
+
+@dataclasses.dataclass
+class AccelPack:
+    """Scene-constant sweep inputs, built once per frame and shared by every
+    closest and occlusion query of the frame."""
+
+    consts: Tensor   # (M, C, NCOEF) f32 linear-form constants
+    meta: Tensor     # (M, 3) f32 chunk centroids
+    lo: Tensor       # (M, 3) f32 chunk AABB mins
+    hi: Tensor       # (M, 3) f32 chunk AABB maxs
+    perm: Tensor     # (M*C,) int64 sorted -> original triangle index
+    chunk_size: int
+
+    @property
+    def n_chunks(self) -> int:
+        return self.consts.shape[0]
+
+
+def pack_for(perm: Tensor, tri_vertices: Tensor, c: int) -> AccelPack:
+    """AccelPack at chunk size ``c`` from a sorted triangle permutation
+    (padded to a multiple of ``c`` by repeating the last triangle)."""
+    pad = (-perm.shape[0]) % c
+    if pad:
+        perm = torch.cat([perm, perm[-1:].expand(pad)])
+    tv = tri_vertices.detach().to(torch.float32)[perm]
+    tvc = tv.reshape(-1, c, 3, 3)
+    lo = tvc.amin(dim=(1, 2))
+    hi = tvc.amax(dim=(1, 2))
+    centroid = 0.5 * (lo + hi)
+    return AccelPack(pack_tri_consts(tvc, centroid), centroid.contiguous(), lo, hi, perm, c)
+
+
+def build_pack(scene: Scene, cfg: RenderConfig) -> AccelPack:
+    """The sweep's scene-constant inputs (no gradient)."""
+    if scene.tri_chunk_perm is None:
+        raise ValueError("scene has no chunk permutation; call accel.with_chunks(scene, cfg)")
+    return pack_for(scene.tri_chunk_perm, scene.tri_vertices,
+                    effective_chunk_size(cfg, scene.n_triangles))
+
+
+# ---------------------------------------------------------------------------
+# per-tile chunk lists
+# ---------------------------------------------------------------------------
+
+def _inv_dir(rd: Tensor) -> Tensor:
+    nz = rd != 0.0
+    return torch.where(nz, 1.0 / torch.where(nz, rd, torch.ones_like(rd)),
+                       torch.full_like(rd, BIG))
+
+
+def compact_front_to_back(mask: Tensor, entry: Tensor, ids: Tensor | None = None):
+    """(chunk_list, entry, counts): each tile's visible chunks first, sorted
+    front-to-back by entry bound (stable), so the sweep consumes near chunks
+    first and can stop once the next entry exceeds every live lane's nearest
+    hit. ``ids`` (default arange) names the chunk at each position."""
+    nt, m = mask.shape
+    if ids is None:
+        ids = torch.arange(m, device=mask.device).expand(nt, m)
+    key = torch.where(mask, entry, torch.full_like(entry, float("inf")))
+    order = torch.sort(total_order_key(key), dim=1, stable=True).indices
+    entry_pay = torch.where(mask, entry, torch.zeros_like(entry))
+    return (torch.gather(ids, 1, order).to(torch.int32),
+            torch.gather(entry_pay, 1, order),
+            mask.sum(dim=1, dtype=torch.int32))
+
+
+def chunk_mask(ro: Tensor, rd: Tensor, lo: Tensor, hi: Tensor, nt: int):
+    """Conservative per-tile chunk visibility by OCTANT-SPLIT interval
+    arithmetic: per tile and direction octant, bound the rays by
+    [ro_min, ro_max] x [inv_min, inv_max] and interval-evaluate the slab test
+    against every chunk AABB. Parked lanes are excluded. Never drops a chunk
+    any tile ray could hit.
+
+    ro, rd: (nt*LANES, 3) f32. Returns (chunk_list (nt, M) i32, entry (nt, M)
+    f32, counts (nt,) i32)."""
+    inv = _inv_dir(rd)
+    ro_t = ro.reshape(nt, LANES, 3)
+    inv_t = inv.reshape(nt, LANES, 3)
+    live = ro_t[..., 0] != PARK_DISTANCE
+    neg = (inv_t < 0).to(torch.int8)
+    oct_id = neg[..., 0] + 2 * neg[..., 1] + 4 * neg[..., 2]
+    big = torch.tensor(BIG, dtype=ro.dtype, device=ro.device)
+    mask = entry = None
+    for o in range(8):
+        sel = (live & (oct_id == o))[..., None]
+        any_o = torch.any(sel[..., 0], dim=1)
+        ro_lo = torch.where(sel, ro_t, big).amin(1)[:, None]
+        ro_hi = torch.where(sel, ro_t, -big).amax(1)[:, None]
+        inv_lo = torch.where(sel, inv_t, big).amin(1)[:, None]
+        inv_hi = torch.where(sel, inv_t, -big).amax(1)[:, None]
+
+        def plane_interval(p):
+            # interval of (p - ro) * inv, p: (M, 3)
+            a_lo = p[None] - ro_hi
+            a_hi = p[None] - ro_lo
+            cands = torch.stack([a_lo * inv_lo, a_lo * inv_hi, a_hi * inv_lo, a_hi * inv_hi])
+            return cands.amin(0), cands.amax(0)
+
+        ta_lo, ta_hi = plane_interval(lo)
+        tb_lo, tb_hi = plane_interval(hi)
+        tn_lo = torch.minimum(ta_lo, tb_lo).amax(-1)   # (nt, M) optimistic entry
+        tf_hi = torch.maximum(ta_hi, tb_hi).amin(-1)   # optimistic exit
+        e = torch.clamp(tn_lo, min=0.0)
+        # same relative pad as the exact mask, so the exact mask (gated by
+        # this list) is never the stricter of the two on a grazing chunk
+        m_o = (tf_hi * (1.0 + 1e-6) + 1e-6 >= e) & any_o[:, None]
+        e = torch.where(m_o, e, big)
+        mask = m_o if mask is None else (mask | m_o)
+        entry = e if entry is None else torch.minimum(entry, e)
+    return compact_front_to_back(mask, entry)
+
+
+def chunk_mask_exact(ro: Tensor, rd: Tensor, lo: Tensor, hi: Tensor, nt: int):
+    """EXACT per-tile chunk visibility: per-ray slab tests, OR-reduced over
+    each tile's live lanes, refined only over the first EXACT_GATE_CAP
+    chunks of the interval list (a conservative superset); a longer interval
+    list keeps its tail un-refined. Tiles go through in blocks of
+    EXACT_MASK_BLOCK_TILES to bound the (rays, cap) temporaries. The per-tile
+    entry bound is the min slab entry over hitting lanes. Same contract as
+    ``chunk_mask``."""
+    m = lo.shape[0]
+    k = min(EXACT_GATE_CAP, m)
+    ids_i, entry_i, counts_i = chunk_mask(ro, rd, lo, hi, nt)
+    cand = ids_i[:, :k].long()
+    cnt = torch.clamp(counts_i, max=k)
+    inv = _inv_dir(rd)
+    inf = torch.tensor(float("inf"), dtype=ro.dtype, device=ro.device)
+    # positions < k take the per-ray verdicts below; k <= pos < count keep
+    # the conservative un-refined interval tail
+    pos = torch.arange(m, device=ro.device)[None, :]
+    mask = (pos >= k) & (pos < counts_i[:, None])
+    entry = entry_i.clone()
+    for t0 in range(0, nt, EXACT_MASK_BLOCK_TILES):
+        t1 = min(t0 + EXACT_MASK_BLOCK_TILES, nt)
+        ro_t = ro[t0 * LANES:t1 * LANES].reshape(-1, LANES, 3)
+        inv_t = inv[t0 * LANES:t1 * LANES].reshape(-1, LANES, 3)
+        lo_b, hi_b = lo[cand[t0:t1]], hi[cand[t0:t1]]            # (bt, k, 3)
+        live = ro_t[..., 0] != PARK_DISTANCE
+        tn = torch.zeros((t1 - t0, LANES, k), dtype=ro.dtype, device=ro.device)
+        tf = torch.full_like(tn, BIG)
+        for ax in range(3):
+            t_a = (lo_b[:, None, :, ax] - ro_t[:, :, None, ax]) * inv_t[:, :, None, ax]
+            t_b = (hi_b[:, None, :, ax] - ro_t[:, :, None, ax]) * inv_t[:, :, None, ax]
+            tn = torch.maximum(tn, torch.minimum(t_a, t_b))
+            tf = torch.minimum(tf, torch.maximum(t_a, t_b))
+        # small relative pad so f32 rounding cannot drop a grazing chunk
+        in_list = pos[None, :, :k] < cnt[t0:t1, None, None]
+        hit = (tf * (1.0 + 1e-6) + 1e-6 >= tn) & live[:, :, None] & in_list
+        mb = torch.any(hit, dim=1)
+        mask[t0:t1, :k] = mb
+        entry[t0:t1, :k] = torch.where(mb, torch.where(hit, tn, inf).amin(dim=1), 0.0)
+    return compact_front_to_back(mask, entry, ids_i.long())
+
+
+# ---------------------------------------------------------------------------
+# the sweep: CUDA kernel and its plain PyTorch twin
+# ---------------------------------------------------------------------------
+
+def sweep_reference(ro: Tensor, rd: Tensor, consts: Tensor, meta: Tensor, chunk_list: Tensor,
+                    counts: Tensor, entry: Tensor, det_eps: float, t_min: float,
+                    any_mode: bool = False):
+    """Plain PyTorch sweep; defines what the kernel computes.
+
+    For list position j = 0 .. max(counts)-1 it gathers chunk
+    ``chunk_list[:, j]`` for every tile at once, evaluates the four linear
+    forms elementwise in f32 (no matmul, so TF32 never enters), and updates:
+
+    * closest mode: valid = |det| >= eps, beta > 0, gamma > 0, beta+gamma < 1,
+      t > t_min (divided form); the first minimum within the chunk replaces
+      the best hit only when strictly closer (list order across chunks);
+      idx = chunk * C + triangle, sorted-space, -1 on a miss;
+    * any mode: the division-free sign tests; idx = chunk * C of the FIRST
+      occluding chunk in list order, t stays BIG.
+
+    The kernel's early exits are skipped: they never change the result.
+    ``entry`` is accepted for the kernel's signature only.
+    """
+    nt = counts.shape[0]
+    c = consts.shape[1]
+    dev = ro.device
+    ro_t, rd_t = ro.reshape(nt, 1, LANES, 3), rd.reshape(nt, 1, LANES, 3)
+    ox, oy, oz = ro_t.unbind(-1)
+    dx, dy, dz = rd_t.unbind(-1)
+    qx, qy, qz = _cross_rows(dx, dy, dz, ox, oy, oz)
+    best_t = torch.full((nt, LANES), BIG, dtype=torch.float32, device=dev)
+    best_i = torch.full((nt, LANES), -1, dtype=torch.int32, device=dev)
+    n_max = int(counts.max()) if nt else 0
+    for j in range(n_max):
+        live_tile = (j < counts)[:, None]
+        m = chunk_list[:, j].long()
+        gx, gy, gz = (meta[m][:, i, None, None] for i in range(3))
+        w = consts[m][..., None]                                 # (nt, C, NCOEF, 1)
+        nx, ny, nz, d, c1x, c1y, c1z, e2x, e2y, e2z, c2x, c2y, c2z, e1x, e1y, e1z = \
+            w.unbind(2)
+        rx, ry, rz = ox - gx, oy - gy, oz - gz
+        px, py, pz = (q - s for q, s in zip((qx, qy, qz), _cross_rows(dx, dy, dz, gx, gy, gz)))
+        det = nx * dx + ny * dy + nz * dz
+        tnum = d - (nx * rx + ny * ry + nz * rz)
+        bnum = (c1x * dx + c1y * dy + c1z * dz) - (e2x * px + e2y * py + e2z * pz)
+        gnum = (c2x * dx + c2y * dy + c2z * dz) + (e1x * px + e1y * py + e1z * pz)
+        if any_mode:
+            det2 = det * det
+            m1, m2 = bnum * det, gnum * det
+            valid = ((det2 >= det_eps * det_eps) & (m1 > 0.0) & (m2 > 0.0)
+                     & (m1 + m2 < det2) & (tnum * det > t_min * det2))
+            new = torch.any(valid, dim=1) & live_tile & (best_i < 0)
+            best_i = torch.where(new, (m * c).to(torch.int32)[:, None], best_i)
+            continue
+        ok = torch.abs(det) >= det_eps
+        invd = 1.0 / torch.where(ok, det, torch.ones_like(det))
+        t, beta, gamma = tnum * invd, bnum * invd, gnum * invd
+        valid = ok & (beta > 0.0) & (gamma > 0.0) & (beta + gamma < 1.0) & (t > t_min)
+        tm = torch.where(valid, t, torch.full_like(t, BIG))
+        tmin = tm.amin(dim=1)
+        amin = torch.argmin(tm, dim=1).to(torch.int32)
+        upd = (tmin < best_t) & live_tile
+        best_t = torch.where(upd, tmin, best_t)
+        best_i = torch.where(upd, (m * c).to(torch.int32)[:, None] + amin, best_i)
+    return best_t.reshape(-1), best_i.reshape(-1)
+
+
+def _check(name, x, dtype, shape):
+    if x.dtype != dtype:
+        raise TypeError(f"sweep: {name} has dtype {x.dtype}, want {dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"sweep: {name} has shape {tuple(x.shape)}, want {tuple(shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"sweep: {name} is not contiguous")
+
+
+def sweep(ro: Tensor, rd: Tensor, consts: Tensor, meta: Tensor, chunk_list: Tensor,
+          counts: Tensor, entry: Tensor, det_eps: float, t_min: float,
+          any_mode: bool = False):
+    """The chunk sweep over whole tiles: (t (R,) f32, idx (R,) i32), R =
+    nt * LANES. CUDA tensors launch ``csrc/sweep.cu``; CPU tensors run
+    ``sweep_reference``. Anything else raises."""
+    nt = counts.shape[0]
+    m, c = consts.shape[0], consts.shape[1]
+    r = nt * LANES
+    f32, i32 = torch.float32, torch.int32
+    for name, x, dt, shape in (("ro", ro, f32, (r, 3)), ("rd", rd, f32, (r, 3)),
+                               ("consts", consts, f32, (m, c, NCOEF)), ("meta", meta, f32, (m, 3)),
+                               ("chunk_list", chunk_list, i32, (nt, m)),
+                               ("counts", counts, i32, (nt,)), ("entry", entry, f32, (nt, m))):
+        _check(name, x, dt, shape)
+        if x.device != ro.device:
+            raise ValueError(f"sweep: {name} is on {x.device}, ro on {ro.device}")
+    if ro.device.type == "cpu":
+        return sweep_reference(ro, rd, consts, meta, chunk_list, counts, entry,
+                               det_eps, t_min, any_mode)
+    if ro.device.type != "cuda":
+        raise ValueError(f"sweep: no kernel for device {ro.device}")
+    out_t = torch.empty(r, dtype=f32, device=ro.device)
+    out_i = torch.empty(r, dtype=i32, device=ro.device)
+    lib = cuda_build.load()
+    stream = torch.cuda.current_stream(ro.device).cuda_stream
+    rc = lib.rt_sweep(ro.data_ptr(), rd.data_ptr(), consts.data_ptr(), meta.data_ptr(),
+                      chunk_list.data_ptr(), counts.data_ptr(), entry.data_ptr(),
+                      out_t.data_ptr(), out_i.data_ptr(), nt, m, c, float(det_eps),
+                      float(t_min), int(any_mode), ro.device.index or 0, stream)
+    if rc != 0:
+        raise RuntimeError(f"sweep kernel launch failed: {cuda_build.error_string(rc)}")
+    sweep.launches += 1
+    return out_t, out_i
+
+
+sweep.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# query entry points
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def sweep_inputs(ro: Tensor, rd: Tensor, pack: AccelPack, cfg: RenderConfig,
+                 exact_mask: bool | None = None):
+    """The sweep's per-query inputs: rays cast to f32 (shading may run in f64)
+    and padded with parked lanes to whole tiles, and each tile's chunk list.
+    ``exact_mask`` forces the exact per-ray chunk mask on or off; None picks
+    it for query widths up to ``cfg.exact_mask_rays``.
+    Returns (ro32, rd32, chunk_list, entry, counts)."""
+    if pack.n_chunks * pack.chunk_size >= EXACT_MASK_MIN_TRIS:
+        raise NotImplementedError(
+            f"big-scene slice: {pack.n_chunks * pack.chunk_size} triangles >= "
+            f"{EXACT_MASK_MIN_TRIS} needs the super-chunk gate, not ported")
+    f32 = torch.float32
+    pad = (-ro.shape[0]) % LANES
+    ro32 = torch.cat([ro.to(f32), ro.new_full((pad, 3), PARK_DISTANCE, dtype=f32)])
+    rd32 = torch.cat([rd.to(f32), ro.new_full((pad, 3), 1.0, dtype=f32)])
+    if exact_mask is None:
+        exact_mask = ro32.shape[0] <= cfg.exact_mask_rays
+    mask_fn = chunk_mask_exact if exact_mask else chunk_mask
+    chunk_list, entry, counts = mask_fn(ro32, rd32, pack.lo, pack.hi, ro32.shape[0] // LANES)
+    return ro32, rd32, chunk_list.contiguous(), entry.contiguous(), counts
+
+
+@torch.no_grad()
+def closest_triangle(scene: Scene, ro: Tensor, rd: Tensor, cfg: RenderConfig,
+                     any_mode: bool = False, pack: AccelPack | None = None,
+                     raw_idx: bool = False, exact_mask: bool | None = None):
+    """Nearest triangle (t, index) via the chunk sweep; forward only.
+
+    ``any_mode`` turns the query into occlusion (t stays BIG). ``raw_idx``
+    returns SORTED-space indices (for callers that gather from the sorted
+    table); default is the original triangle index. ``exact_mask`` as in
+    ``sweep_inputs``.
+    """
+    if pack is None:
+        pack = build_pack(scene, cfg)
+    r = ro.shape[0]
+    ro32, rd32, chunk_list, entry, counts = sweep_inputs(ro, rd, pack, cfg, exact_mask)
+    t, idx = sweep(ro32, rd32, pack.consts, pack.meta, chunk_list, counts, entry,
+                   float(cfg.det_epsilon), float(cfg.smallest_dist), any_mode)
+    idx = idx[:r].long()
+    t = torch.where(idx >= 0, t[:r].to(ro.dtype), torch.full((r,), BIG, dtype=ro.dtype,
+                                                             device=ro.device))
+    if raw_idx:
+        return t, idx
+    return t, torch.where(idx >= 0, pack.perm[idx.clamp(min=0)], -1)
+
+
+def any_triangle(scene: Scene, ro: Tensor, rd: Tensor, cfg: RenderConfig,
+                 pack: AccelPack | None = None, exact_mask: bool | None = None) -> Tensor:
+    """Occlusion: True where any triangle is hit with t > smallest_dist."""
+    _, idx = closest_triangle(scene, ro, rd, cfg, any_mode=True, pack=pack, raw_idx=True,
+                              exact_mask=exact_mask)
+    return idx >= 0

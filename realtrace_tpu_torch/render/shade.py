@@ -1,0 +1,204 @@
+"""Wavefront Whitted shading without dielectrics.
+
+Counterpart of the non-branching ``trace_wavefront`` of
+``realtrace_tpu/render/shade.py``: the reference's recursive
+``World::shade_ray`` (Serial/world.cpp:32-111) flattened into one loop over
+bounce levels, each level one dense batch of rays. Between levels the
+wavefront shrinks to the 1024-lane tiles that still hold a live lane
+(dynamic compaction with ``nonzero``; exact, since dropped lanes carry zero
+coefficients), and each level's colour is ``index_add_``-ed back per tile.
+
+Discrete decisions (hit selection, shadowing) run without gradient inside
+``closest_query`` / ``any_hit``; everything else is differentiable.
+"""
+from __future__ import annotations
+
+import torch
+from torch import Tensor
+
+from realtrace_tpu_torch.core import vec
+from realtrace_tpu_torch.core.types import PARK_DISTANCE, WAVEFRONT_TILE, RenderConfig, Scene
+from realtrace_tpu_torch.ops import sweep
+from realtrace_tpu_torch.ops.intersect import (FAM_NONE, Hit, any_hit, closest_query,
+                                               hit_attributes)
+
+
+def phong_pow(d: Tensor, e: int) -> Tensor:
+    """max(pow(d, e), 0) with C ``pow`` semantics for negative bases: even
+    exponent → |d|^e, odd → clamped at 0. Ref: Serial/world.cpp:134."""
+    if e % 2 == 0:
+        return torch.abs(d) ** e
+    return torch.clamp(d, min=0.0) ** e
+
+
+def light_shade(position: Tensor, normal: Tensor, view: Tensor, color: Tensor,
+                kd: Tensor, ks: Tensor, scene: Scene, cfg: RenderConfig) -> Tensor:
+    """Phong diffuse + specular summed over all lights.
+
+    Ref: World::get_light_shade, Serial/world.cpp:126-137. ``legacy_diffuse``
+    keeps the reference quirk of lighting by ``normalize(lightPosition)``.
+    """
+    n = vec.normalize(normal)
+    lp = scene.lights.position
+    li = scene.lights.intensity
+    l_dir = vec.normalize(lp[None, :, :] - position[:, None, :])      # (R, L, 3)
+    refl = vec.normalize(vec.reflect(-l_dir, n[:, None, :]))
+    diff_dir = vec.normalize(lp)[None, :, :] if cfg.legacy_diffuse else l_dir
+    diffuse = torch.clamp(vec.dot(n[:, None, :], diff_dir), min=0.0)   # (R, L)
+    spec = phong_pow(vec.dot(vec.normalize(view)[:, None, :], refl), cfg.phong_exp)
+    out = (kd[:, None, None] * diffuse[..., None] * li[None] * color[:, None, :]
+           + ks[:, None, None] * spec[..., None] * li[None])
+    return torch.sum(out, dim=1)
+
+
+def _park_dead(ro: Tensor, rd: Tensor, live: Tensor) -> tuple[Tensor, Tensor]:
+    """Replace dead lanes' rays by a guaranteed-miss ray far outside the
+    scene, pointing away, which the sweep's chunk masks give no work."""
+    park_d = torch.zeros_like(rd)
+    park_d[..., 0] = 1.0
+    return (torch.where(live[:, None], ro, torch.full_like(ro, PARK_DISTANCE)),
+            torch.where(live[:, None], rd, park_d))
+
+
+def _shadow_targets(scene: Scene, hit_pos: Tensor, live: Tensor, cfg: RenderConfig):
+    """Per-light shadow ray (origin, direction), parked on dead lanes.
+    Ref: Serial/world.cpp:42-51 (origin offset along the unnormalized
+    to-light vector)."""
+    out = []
+    for l in range(scene.n_lights):
+        to_light = scene.lights.position[l][None, :] - hit_pos
+        out.append(_park_dead(hit_pos + cfg.shadow_origin_bias * to_light,
+                              vec.normalize(to_light), live))
+    return out
+
+
+def local_color(scene: Scene, hit: Hit, rd: Tensor, cfg: RenderConfig,
+                shadowed: Tensor | None) -> Tensor:
+    """Direct shade at a hit: Phong + ambient, with the reference's shadow
+    blend ``final*1e-4 + shadowColor*(1-1e-4)`` where ``shadowed``.
+    Ref: Serial/world.cpp:40-63."""
+    lc = light_shade(hit.position, hit.normal, rd, hit.color, hit.kd, hit.ks, scene, cfg)
+    amb = scene.ambient[None, :] * hit.color * hit.ka[:, None]
+    lc = lc + amb
+    if shadowed is not None:
+        b = cfg.shadow_blend
+        lc = torch.where(shadowed[:, None], lc * b + amb * (1.0 - b), lc)
+    return lc
+
+
+def _children_geom(scene: Scene, hit: Hit, ro: Tensor, rd: Tensor, coeff: Tensor,
+                   cfg: RenderConfig):
+    """Reflection child of one wavefront step (no shading, no queries):
+    (valid, (ro_r, rd_r, coeff_r)). Ref: Serial/world.cpp:77-109; the scenes
+    this path takes have no dielectric (kr > 0 and kt > 0) lanes."""
+    valid = hit.valid & torch.any(coeff > 0.0, dim=-1)
+    i = vec.normalize(rd)
+    n = vec.normalize(hit.normal)
+    is_refl = valid & (hit.kr > 0.0)
+    r_dir = vec.reflect(i, n)
+    ro_r = hit.position + cfg.ray_offset * r_dir
+    rd_r = vec.normalize(r_dir)
+    w_reflect = torch.where(is_refl, hit.kr, torch.zeros_like(hit.kr))
+    coeff_r = coeff * w_reflect[:, None]
+    # park rays whose continuation carries no energy
+    ro_r, rd_r = _park_dead(ro_r, rd_r, torch.any(coeff_r.detach() > 0.0, dim=-1))
+    return valid, (ro_r, rd_r, coeff_r)
+
+
+def _local_contrib(scene: Scene, hit: Hit, rd: Tensor, coeff: Tensor, valid: Tensor,
+                   cfg: RenderConfig, miss_background: bool,
+                   shadowed: Tensor | None) -> Tensor:
+    """This level's colour: Phong shade on valid lanes, plus the background
+    on active misses when ``miss_background``."""
+    lc = local_color(scene, hit, rd, cfg, shadowed)
+    zero = torch.zeros_like(coeff)
+    contrib = torch.where(valid[:, None], coeff * lc, zero)
+    if miss_background:
+        active = torch.any(coeff > 0.0, dim=-1)
+        contrib = contrib + torch.where((active & ~hit.valid)[:, None],
+                                        coeff * scene.background[None], zero)
+    return contrib
+
+
+def _shadow_occlusion(scene: Scene, hit: Hit, valid: Tensor, cfg: RenderConfig,
+                      pack=None, exact_mask=None) -> Tensor | None:
+    """One any-mode query covering every light's shadow rays, folded to a
+    per-lane any-light-occluded mask; None when shadows are off. A shadow
+    hit beyond the light still shadows (Serial/world.cpp:42-51)."""
+    nl = scene.n_lights if cfg.shadows else 0
+    if nl == 0:
+        return None
+    sh = _shadow_targets(scene, hit.position.detach(), valid, cfg)
+    occ_all = any_hit(scene, torch.cat([o for o, _ in sh]), torch.cat([d for _, d in sh]),
+                      cfg, pack=pack, exact_mask=exact_mask)
+    return occ_all.reshape(nl, -1).any(dim=0)
+
+
+def trace_wavefront(scene: Scene, ro: Tensor, rd: Tensor, cfg: RenderConfig,
+                    coeff: Tensor | None = None) -> tuple[Tensor, int]:
+    """Trace a wavefront of rays to completion: (accumulated colour (R, 3),
+    traced-ray count: primary, reflection and shadow rays actually cast).
+
+    Level 0 queries every ray; misses take the background at full width.
+    Every later step runs only on the tiles that still hold a live lane:
+    children spawn in their parent's lane, so tiles never mix pixels. Per
+    level, one any-mode query covers every light's shadow rays and one
+    closest query the next level's reflection rays, on the live tiles only;
+    the last level's children take the background unqueried.
+    """
+    if scene.has_dielectrics():
+        raise NotImplementedError("branching slice: scenes with dielectrics (kr>0 and kt>0) "
+                                  "need the branching wavefront, not ported")
+    tile = WAVEFRONT_TILE
+    r = ro.shape[0]
+    if coeff is None:
+        coeff = torch.ones_like(ro)
+    pad = (-r) % tile
+    if pad:   # pad lanes: parked, zero coefficient
+        ro = torch.cat([ro, ro.new_full((pad, 3), PARK_DISTANCE)])
+        rd = torch.cat([rd, rd.new_tensor([1.0, 0.0, 0.0]).expand(pad, 3)])
+        coeff = torch.cat([coeff, coeff.new_zeros((pad, 3))])
+    nt = ro.shape[0] // tile
+    nl = scene.n_lights if cfg.shadows else 0
+    pack = None
+    if cfg.accel == "sweep" and scene.n_triangles:
+        pack = sweep.build_pack(scene, cfg)
+
+    t, fam, idx = closest_query(scene, ro, rd, cfg, pack=pack)
+    active = torch.any(coeff > 0.0, dim=-1)
+    valid0 = (fam != FAM_NONE) & active
+    nrays = int(active.sum()) + nl * int(valid0.sum())
+    zero = torch.zeros_like(coeff)
+    accum = torch.where((active & (fam == FAM_NONE))[:, None], coeff * scene.background[None],
+                        zero)
+    accum_t = accum.reshape(nt, tile, 3)
+
+    # live tiles (global ids) and the wavefront gathered to them
+    tiles = torch.nonzero(valid0.reshape(nt, tile).any(dim=1))[:, 0]
+
+    def gather(x, sel):
+        return x.reshape(-1, tile, *x.shape[1:])[sel].reshape(-1, *x.shape[1:])
+
+    ro_s, rd_s, coeff_s = gather(ro, tiles), gather(rd, tiles), gather(coeff, tiles)
+    t, fam, idx = gather(t, tiles), gather(fam, tiles), gather(idx, tiles)
+    em = True if cfg.exact_mask_secondary else None
+    for level in range(cfg.max_depth + 1):
+        hit = hit_attributes(scene, ro_s, rd_s, t, fam, idx, cfg, pack=pack)
+        if level:
+            act = torch.any(coeff_s > 0.0, dim=-1)
+            nrays += int(act.sum()) + nl * int((act & hit.valid).sum())
+        valid, (ro_n, rd_n, coeff_n) = _children_geom(scene, hit, ro_s, rd_s, coeff_s, cfg)
+        occ = _shadow_occlusion(scene, hit, valid, cfg, pack=pack, exact_mask=em)
+        contrib = _local_contrib(scene, hit, rd_s, coeff_s, valid, cfg,
+                                 miss_background=level > 0, shadowed=occ)
+        accum_t = accum_t.index_add(0, tiles, contrib.reshape(-1, tile, 3))
+        if level == cfg.max_depth:   # depth-exceeded live children take the background
+            bg = coeff_n * scene.background[None]
+            accum_t = accum_t.index_add(0, tiles, bg.reshape(-1, tile, 3))
+            break
+        keep = torch.nonzero(torch.any(coeff_n.detach() > 0.0, dim=-1)
+                             .reshape(-1, tile).any(dim=1))[:, 0]
+        tiles = tiles[keep]
+        ro_s, rd_s, coeff_s = gather(ro_n, keep), gather(rd_n, keep), gather(coeff_n, keep)
+        t, fam, idx = closest_query(scene, ro_s, rd_s, cfg, pack=pack, exact_mask=em)
+    return accum_t.reshape(-1, 3)[:r], nrays
