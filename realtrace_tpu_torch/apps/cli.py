@@ -1,10 +1,12 @@
 """Headless render CLI.
 
     python -m realtrace_tpu_torch.apps.cli --scene mesh --width 1920 --height 1080 \\
-        --depth 3 --accel sweep --device cuda --out mesh.png
+        --depth 3 --accel sweep --out mesh.png
 
-renders with ``render_with_stats``, writes a PNG and reports frame time and
-traced rays on stderr.
+renders with ``render_with_stats`` on the CUDA card (``--device cpu`` asks for
+the CPU; there is no fallback), writes a PNG and reports frame time and
+traced rays on stderr. ``--copies 8`` renders the duplicated big scene,
+``--scene glass`` the dielectric one.
 """
 from __future__ import annotations
 
@@ -20,9 +22,13 @@ def build_parser() -> argparse.ArgumentParser:
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--width", type=int, default=512)
     p.add_argument("--height", type=int, default=512)
-    p.add_argument("--scene", choices=["mesh", "serial", "sphere_plane"], default="mesh",
-                   help="mesh: the procedural bob-sized mesh; serial: --obj in the serial "
-                        "app's setup; sphere_plane: sphere over a reflective floor")
+    p.add_argument("--scene", choices=["mesh", "glass", "serial", "sphere_plane"],
+                   default="mesh",
+                   help="mesh: the procedural bob-sized mesh; glass: the mesh behind a "
+                        "dielectric sphere; serial: --obj in the serial app's setup; "
+                        "sphere_plane: sphere over a reflective floor")
+    p.add_argument("--copies", type=int, default=1,
+                   help="copies of the mesh on an x/z grid (mesh scene; the big-scene workload)")
     p.add_argument("--obj", default=None, help="OBJ mesh path (serial scene)")
     p.add_argument("--texture", default=None, help="texture PNG sampled per vertex")
     p.add_argument("--scale", type=float, default=15.0, help="OBJ scaling factor")
@@ -33,7 +39,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-shadows", action="store_true")
     p.add_argument("--fixed-diffuse", action="store_true",
                    help="use the surface->light diffuse direction instead of the reference quirk")
-    p.add_argument("--device", default="cuda" if torch.cuda.is_available() else "cpu")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (the default; fails without a card) or cpu")
     p.add_argument("--out", default="render.png", help="output PNG")
     p.add_argument("--repeats", type=int, default=1, help="frames to render")
     p.add_argument("--f64", action="store_true", help="double precision")
@@ -61,8 +68,10 @@ def main(argv=None) -> int:
         scene, cam = scenes.serial_obj_scene(args.obj, texture_path=args.texture, dtype=dtype,
                                              device=dev, scale=args.scale,
                                              max_faces=args.max_faces)
+    elif args.scene == "glass":
+        scene, cam = scenes.glass_mesh_scene(dtype=dtype, device=dev)
     else:
-        scene, cam = scenes.mesh_scene(dtype=dtype, device=dev)
+        scene, cam = scenes.duplicated_mesh_scene(args.copies, dtype=dtype, device=dev)
     if cfg.accel == "sweep" and scene.n_triangles:
         scene = accel.with_chunks(scene, cfg)
     camera = scenes.make_camera(cam, args.width, args.height, dtype=dtype, device=dev)

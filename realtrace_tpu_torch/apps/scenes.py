@@ -11,7 +11,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from realtrace_tpu_torch.core.types import Materials, Scene, SceneBuilder
+from realtrace_tpu_torch.core.types import Materials, Scene, SceneBuilder, default_device
 from realtrace_tpu_torch.io.obj import load_obj_scene
 from realtrace_tpu_torch.render.camera import Camera
 
@@ -19,7 +19,7 @@ from realtrace_tpu_torch.render.camera import Camera
 SERIAL_CAM = dict(position=(60, 60, 0), target=(0, 0, 0), up=(0, 1, 0), fovy=45.0)
 
 
-def sphere_plane_scene(dtype=torch.float32, device="cpu") -> tuple[Scene, dict]:
+def sphere_plane_scene(dtype=torch.float32, device=None) -> tuple[Scene, dict]:
     """Sphere + reflective floor quad + point light (Serial/lumina.cpp:323-357):
     red sphere at (4,0,4) r=3, grey floor at y=-3."""
     b = SceneBuilder(dtype=dtype, device=device)
@@ -34,6 +34,25 @@ def sphere_plane_scene(dtype=torch.float32, device="cpu") -> tuple[Scene, dict]:
     return b.build(), dict(SERIAL_CAM)
 
 
+def full_primitive_scene(dtype=torch.float32, device=None) -> tuple[Scene, dict]:
+    """All four primitive families with a dielectric cylinder: the complete
+    commented-out serial scene (Serial/lumina.cpp:312-357)."""
+    b = SceneBuilder(dtype=dtype, device=device)
+    b.ambient = (1.0, 1.0, 1.0)
+    b.background = (0.1, 0.3, 0.6)
+    b.add_sphere((4, 0, 4), 3.0, color=(0.8, 0.1, 0.0),
+                 material=b.material(ka=0.2, kd=0.9, ks=0.4, kr=0.0, kt=0.0, eta=1.0))
+    b.add_cylinder((-7, 0, -3), (0, 0, 1), 1.0, color=(1.0, 1.0, 1.0),
+                   material=b.material(ka=0.4, kd=0.9, ks=0.4, kr=0.1, kt=0.8, eta=2.0))
+    b.add_plane((10, -3, 10), (-10, -3, 10), (-10, -3, -10), (10, -3, -10),
+                color=(0.5, 0.5, 0.5),
+                material=b.material(ka=0.1, kd=0.9, ks=0.2, kr=0.5, kt=0.0, eta=1.0))
+    b.add_triangle((3, 3, 0), (3, -3, 0), (0, 0, 0),
+                   vertex_colors=((1, 0, 0), (1, 1, 0), (0, 0, 1)), material=b.material())
+    b.add_light((0, 30, 30), (0.5, 1.0, 1.0))
+    return b.build(), dict(SERIAL_CAM)
+
+
 def _serial_builder(dtype, device) -> SceneBuilder:
     """The serial app's lighting: ambient 1, background (0.1,0.3,0.6), light
     at (0,30,30) with intensity (0.5,1,1)."""
@@ -44,7 +63,7 @@ def _serial_builder(dtype, device) -> SceneBuilder:
     return b
 
 
-def serial_obj_scene(obj_path, texture_path=None, dtype=torch.float32, device="cpu",
+def serial_obj_scene(obj_path, texture_path=None, dtype=torch.float32, device=None,
                      scale: float = 15.0,
                      max_faces: int | None = None) -> tuple[Scene, dict]:
     """The serial app's shipped scene: an OBJ scaled x15 with the reflective
@@ -109,20 +128,77 @@ def mesh_arrays(seed: int = 0, detail: float = 1.0):
     return tv, tc
 
 
+def copy_offsets(n_copies: int) -> list[tuple[float, float]]:
+    """(x, z) offsets of the duplicated mesh's copies: six frozen offsets,
+    then an expanding x/z grid walked ring by ring at spacing 18."""
+    offs = [(0.0, 0.0), (18.0, 0.0), (0.0, 18.0), (18.0, 18.0), (-18.0, 0.0), (0.0, -18.0)]
+    ring = 1
+    while len(offs) < n_copies:
+        cand = [(i * 18.0, j * 18.0)
+                for i in range(-ring, ring + 1)
+                for j in range(-ring, ring + 1)
+                if max(abs(i), abs(j)) == ring]
+        offs.extend(c for c in cand if c not in offs)
+        ring += 1
+    return offs[:n_copies]
+
+
+def _mesh_scene(tv: np.ndarray, tc: np.ndarray, dtype, device) -> Scene:
+    """The serial app's lighting and OBJ material around (N, 3, 3) triangles."""
+    device = default_device(device)
+    return dataclasses.replace(
+        _serial_builder(dtype, device).build(),
+        tri_vertices=torch.as_tensor(tv, dtype=dtype, device=device),
+        tri_colors=torch.as_tensor(tc, dtype=dtype, device=device),
+        tri_materials=Materials.obj_default(tv.shape[0], dtype, device))
+
+
 def mesh_scene(seed: int = 0, detail: float = 1.0, dtype=torch.float32,
-               device="cpu") -> tuple[Scene, dict]:
+               device=None) -> tuple[Scene, dict]:
     """``serial_obj_scene``'s camera, light, ambient, background and OBJ
     material (``Materials.obj_default``) around the procedural mesh of
     ``mesh_arrays``, scaled x15."""
     tv, tc = mesh_arrays(seed, detail)
-    scene = _serial_builder(dtype, device).build()
+    return _mesh_scene(15.0 * tv, tc, dtype, device), dict(SERIAL_CAM)
+
+
+def duplicated_mesh_scene(n_copies: int, seed: int = 0, detail: float = 1.0,
+                          dtype=torch.float32, device=None) -> tuple[Scene, dict]:
+    """The big-scene workload: ``mesh_scene``'s mesh duplicated on the x/z
+    offsets of ``copy_offsets`` (the CUDA app's duplication at x+-5,
+    Parellel/main.cu:167-181, generalized to n copies). At ``detail=1`` a
+    copy is 10,752 triangles: x2 stays with the resident kernel, x4 (43,008)
+    streams, x8 (86,016) and x16 (172,032) also take the big-scene masks."""
+    tv, tc = mesh_arrays(seed, detail)
+    tv = 15.0 * tv
+    tvs = []
+    for ox, oz in copy_offsets(n_copies):
+        t = tv.copy()
+        t[..., 0] += ox
+        t[..., 2] += oz
+        tvs.append(t)
+    return (_mesh_scene(np.concatenate(tvs), np.concatenate([tc] * n_copies), dtype, device),
+            dict(SERIAL_CAM))
+
+
+def glass_mesh_scene(seed: int = 0, detail: float = 1.0, dtype=torch.float32,
+                     device=None) -> tuple[Scene, dict]:
+    """``mesh_scene`` plus one dielectric sphere between camera and mesh: the
+    branching-wavefront scene. Every hit on the sphere takes the Fresnel split
+    into a reflection and a refraction child (Serial/world.cpp:77-100)."""
+    scene, cam = mesh_scene(seed, detail, dtype, device)
+
+    def t(x):
+        return torch.as_tensor(x, dtype=dtype, device=scene.tri_vertices.device)
+
+    glass = Materials(ka=t([0.1]), kd=t([0.2]), ks=t([0.3]), kr=t([0.3]), kt=t([0.8]),
+                      eta=t([1.5]))
     return dataclasses.replace(
-        scene, tri_vertices=torch.as_tensor(15.0 * tv, dtype=dtype, device=device),
-        tri_colors=torch.as_tensor(tc, dtype=dtype, device=device),
-        tri_materials=Materials.obj_default(tv.shape[0], dtype, device)), dict(SERIAL_CAM)
+        scene, sph_center=t([[20.0, 15.0, 20.0]]), sph_radius=t([10.0]),
+        sph_color=t([[0.95, 0.95, 1.0]]), sph_materials=glass), cam
 
 
 def make_camera(cam: dict, width: int, height: int, dtype=torch.float32,
-                device="cpu") -> Camera:
+                device=None) -> Camera:
     return Camera.make(cam["position"], cam["target"], cam["up"], cam["fovy"],
                        width, height, dtype=dtype, device=device)

@@ -11,21 +11,24 @@ import dataclasses
 import numpy as np
 import torch
 
-from realtrace_tpu_torch.core.types import MATERIAL_KEYS, Lights, Materials, RenderConfig, Scene
+from realtrace_tpu_torch.core.types import (MATERIAL_KEYS, Lights, Materials, RenderConfig, Scene,
+                                            default_device)
 
 _MATERIAL_FIELDS = ("tri_materials", "sph_materials", "pln_materials", "cyl_materials")
 # JAX RenderConfig fields with no counterpart here: knobs that only steer TPU
-# layouts, precisions or static shapes, and beer_sigma, which only the
-# dielectric (branching) wavefront reads; none changes an image this port renders
+# layouts, precisions or static shapes (the capacity ladders among them: the
+# port compacts dynamically, so nothing overflows); none changes an image
 _DROPPED = ("shortlist", "ray_block", "matmul_precision", "occlusion_precision",
             "compact_buckets", "deep_buckets", "branch_buckets", "remat",
-            "compact_levels", "beer_sigma")
+            "compact_levels")
 # JAX RenderConfig fields whose non-default values select paths not ported
 _FIXED = {"merge_queries": True, "shadow_any_mode": True}
 
 
-def scene_from_numpy(d: dict, dtype=None, device="cpu") -> Scene:
-    """Scene from a dict of arrays; ``dtype`` defaults to the vertices' dtype."""
+def scene_from_numpy(d: dict, dtype=None, device=None) -> Scene:
+    """Scene from a dict of arrays; ``dtype`` defaults to the vertices' dtype,
+    ``device`` to the card (``default_device``)."""
+    device = default_device(device)
     if dtype is None:
         dtype = torch.from_numpy(np.empty(0, np.asarray(d["tri_vertices"]).dtype)).dtype
 
@@ -79,4 +82,6 @@ def config_from_dict(d: dict) -> RenderConfig:
         d.pop(k, None)
     if d.get("accel") == "pallas":
         d["accel"] = "sweep"
+    if "beer_sigma" in d:
+        d["beer_sigma"] = tuple(float(x) for x in d["beer_sigma"])
     return RenderConfig(**d)

@@ -29,6 +29,13 @@ WAVEFRONT_TILE = 1024
 MATERIAL_KEYS = ("ka", "kd", "ks", "kr", "kt", "eta")
 
 
+def default_device(device=None) -> torch.device:
+    """The device constructors build on: the CUDA card unless the caller names
+    another (``device="cpu"`` asks for the CPU). There is no fallback: with no
+    card and no explicit device, the first tensor made on it raises."""
+    return torch.device("cuda" if device is None else device)
+
+
 def _to(obj, device):
     """dataclasses.replace with every tensor field (recursively) moved."""
     kw = {}
@@ -57,8 +64,9 @@ class Materials:
     eta: Tensor  # (N,) index of refraction
 
     @staticmethod
-    def obj_default(n: int, dtype=torch.float32, device="cpu") -> "Materials":
+    def obj_default(n: int, dtype=torch.float32, device=None) -> "Materials":
         """Materials the OBJ loader assigns: Serial/lumina.cpp init_material_from_obj."""
+        device = default_device(device)
         vals = dict(ka=0.2, kd=0.9, ks=0.4, kr=0.4, kt=0.0, eta=3.0)
         return Materials(**{k: torch.full((n,), v, dtype=dtype, device=device)
                             for k, v in vals.items()})
@@ -147,9 +155,9 @@ class SceneBuilder:
     """Imperative scene assembly (``World::addObject``/``addLight``,
     Serial/world.h:30-38) that freezes into the dense ``Scene``."""
 
-    def __init__(self, dtype=torch.float32, device="cpu"):
+    def __init__(self, dtype=torch.float32, device=None):
         self.dtype = dtype
-        self.device = device
+        self.device = default_device(device)
         self._tris: list[tuple[Any, Any, dict]] = []
         self._sphs: list[tuple[Any, float, Any, dict]] = []
         self._plns: list[tuple[Any, Any, dict]] = []
@@ -237,6 +245,7 @@ class RenderConfig:
     det_epsilon: float = DET_EPSILON
     ray_offset: float = 1e-4               # secondary-ray origin offset, Serial/world.cpp:97-103
     shadow_origin_bias: float = 0.01       # shadow-ray origin lerp factor, Serial/world.cpp:44
+    beer_sigma: tuple = (0.27, 0.45, 0.55)  # exit-attenuation constants, Serial/world.cpp:85
     # "bruteforce" (dense reference semantics) or "sweep" (chunk sweep through
     # the hand-written CUDA kernel; exact)
     accel: str = "bruteforce"

@@ -19,7 +19,9 @@ from realtrace_tpu_torch.core.types import RenderConfig, Scene
 
 # Chunk-size policy carried over from the JAX package: past TARGET_CHUNKS
 # chunks the size doubles (up to MAX_CHUNK_SIZE), and MAX_CHUNKS is a hard
-# ceiling. The scenes this slice runs (< 16,384 triangles) keep chunk_size.
+# ceiling: a scene of up to 16,384 triangles keeps chunk_size, the duplicated
+# mesh takes 128 at x4 (43,008 triangles) and 256 at x8 and x16. The constants
+# are the JAX package's, not re-derived on the H100.
 TARGET_CHUNKS = 512
 MAX_CHUNK_SIZE = 256
 MAX_CHUNKS = 1536

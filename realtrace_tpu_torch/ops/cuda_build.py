@@ -1,10 +1,11 @@
-"""Build and load the package's CUDA kernels (``realtrace_tpu_torch/csrc/*.cu``).
+"""Build and load the package's CUDA kernels (``realtrace_tpu_torch/csrc/*.cu``,
+with their shared headers ``*.cuh``).
 
-The sources are compiled with ``nvcc`` into one shared library with a plain
-C interface and loaded with ``ctypes``. The build runs on first use, goes to
-``csrc/build/`` (keyed by a hash of the sources and flags, so an edit
-rebuilds) and is cached for the process. A missing ``nvcc`` or a failed
-build raises.
+The sources are compiled with ``nvcc`` (one process per source, all started
+together) and linked into one shared library with a plain C interface,
+loaded with ``ctypes``. The build runs on first use, goes to ``csrc/build/``
+(keyed by a hash of the sources, headers and flags, so an edit rebuilds) and
+is cached for the process. A missing ``nvcc`` or a failed build raises.
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lib = None
@@ -34,10 +35,11 @@ def _nvcc() -> str:
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    # ro rd consts meta chunk_list counts entry out_t out_i | nt m c det_eps
-    # t_min any_mode device | stream
-    lib.rt_sweep.argtypes = [p] * 9 + [i, i, i, f64, f64, i, i, p]
-    lib.rt_sweep.restype = i
+    # ro rd consts meta chunk_list counts entry out_t out_i visits | nt m c
+    # det_eps t_min any_mode device | stream
+    for fn in (lib.rt_sweep, lib.rt_sweep_stream):
+        fn.argtypes = [p] * 10 + [i, i, i, f64, f64, i, i, p]
+        fn.restype = i
     lib.rt_error_string.argtypes = [i]
     lib.rt_error_string.restype = ctypes.c_char_p
 
@@ -50,7 +52,7 @@ def load() -> ctypes.CDLL:
         return _lib
     sources = sorted(CSRC.glob("*.cu"))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in sources:
+    for s in sorted([*sources, *CSRC.glob("*.cuh")]):   # headers rebuild too
         h.update(s.name.encode())
         h.update(s.read_bytes())
     out = BUILD_DIR / f"librt_kernels_{h.hexdigest()[:16]}.so"
@@ -59,12 +61,23 @@ def load() -> ctypes.CDLL:
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
-        os.replace(tmp, out)
+        objs = [tmp.with_name(f"{tmp.name}.{s.stem}.o") for s in sources]
+        cmds = [[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(s)] for s, o in zip(sources, objs)]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for c in cmds]
+        cmds.append([_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)])
+        try:
+            outs = [p.communicate()[0] for p in procs]
+            link = subprocess.run(cmds[-1], capture_output=True, text=True)
+            log = "".join(outs) + link.stdout + link.stderr
+            rcs = [p.returncode for p in procs] + [link.returncode]
+            if any(rcs):
+                bad = [" ".join(c) for c, rc in zip(cmds, rcs) if rc]
+                raise RuntimeError(f"nvcc failed {rcs}:\n" + "\n".join(bad) + f"\n{log}")
+            os.replace(tmp, out)
+        finally:
+            for o in objs:
+                o.unlink(missing_ok=True)
     lib = ctypes.CDLL(str(out))
     _declare(lib)
     build_info.update(library=str(out), seconds=time.perf_counter() - t0, log=log)

@@ -17,9 +17,16 @@ at chunk scale instead of scene scale:
 with ro' = ro - G, q' = rd x ro' (G the chunk centroid), e1 = A-B, e2 = A-C,
 n = e1 x e2, d = n . (A-G), c1 = (A-G) x e2, c2 = e1 x (A-G).
 
-``sweep`` launches the CUDA kernel (``csrc/sweep.cu``) on CUDA tensors and
-runs the plain PyTorch twin ``sweep_reference`` on CPU tensors; the twin owns
-the semantics.
+``sweep`` launches one of two CUDA kernels on CUDA tensors: the resident form
+(``csrc/sweep.cu``) or, for scenes past ``RESIDENT_LIMIT`` or when asked, the
+streaming form (``csrc/sweep_stream.cu``), which prefetches each listed chunk
+one position ahead. Both compute the same function; on CPU tensors ``sweep``
+runs their plain PyTorch twin ``sweep_reference``, which owns the semantics.
+
+Big scenes (``EXACT_MASK_MIN_TRIS`` triangles and up) take the exact chunk
+mask at every query width behind a super-chunk gate: per-ray slab tests
+against the AABBs of groups of consecutive chunks prune each tile's interval
+list over the full chunk range before the capped per-ray refinement.
 """
 from __future__ import annotations
 
@@ -39,10 +46,28 @@ NCOEF = 16               # per-triangle constants: n(3) d c1(3) e2(3) c2(3) e1(3
 # kept un-refined, conservatively).
 EXACT_MASK_BLOCK_TILES = 32
 EXACT_GATE_CAP = 96
-# Triangle count at which the JAX package switches to its big-scene mask
-# policy (full-width exact mask behind a super-chunk gate). That policy and
-# the streaming kernel belong to a slice not ported yet.
+# Super-chunk gate: SUPER_GROUP consecutive sorted-space chunks (spatially
+# coherent under the median split) share one AABB; the group size doubles
+# until the super count fits SUPER_STAGE_WIDTH.
+SUPER_GROUP = 8
+SUPER_STAGE_WIDTH = 128
+# Triangle count from which the big-scene mask policy runs (the exact mask at
+# any query width, with the super-chunk gate).
 EXACT_MASK_MIN_TRIS = 1 << 16
+# Residency rule of the JAX package, carried over for parity so that a scene
+# takes the same-numbered kernel in both packages: the resident kernel while
+# the constant table, counted as the JAX layout counts it (4 rows of NCOEF
+# floats per triangle), fits RESIDENT_LIMIT and 4*C is a multiple of 128
+# (up to 24,576 triangles at chunk sizes that are multiples of 32); the
+# streaming kernel otherwise. The two kernels give bit-equal results, so where
+# the boundary lies is a question of speed only, and it is not tuned for the
+# H100.
+RESIDENT_LIMIT = 6 * 1024 * 1024
+# bytes of dynamic shared memory one thread block may be given on the H100
+MAX_DYNAMIC_SMEM = 232_448
+# bytes one (tiles, C, LANES) f32 temporary of the twin may take: sets how many
+# tiles the twin walks at once
+REFERENCE_BLOCK_BYTES = 64 << 20
 
 
 def _cross_rows(ax, ay, az, bx, by, bz):
@@ -84,6 +109,12 @@ class AccelPack:
     @property
     def n_chunks(self) -> int:
         return self.consts.shape[0]
+
+    @property
+    def resident(self) -> bool:
+        """Whether queries take the resident kernel (``RESIDENT_LIMIT``)."""
+        c = self.chunk_size
+        return self.n_chunks * 4 * c * NCOEF * 4 <= RESIDENT_LIMIT and (4 * c) % 128 == 0
 
 
 def pack_for(perm: Tensor, tri_vertices: Tensor, c: int) -> AccelPack:
@@ -180,24 +211,80 @@ def chunk_mask(ro: Tensor, rd: Tensor, lo: Tensor, hi: Tensor, nt: int):
     return compact_front_to_back(mask, entry)
 
 
-def chunk_mask_exact(ro: Tensor, rd: Tensor, lo: Tensor, hi: Tensor, nt: int):
+def super_bounds(lo: Tensor, hi: Tensor):
+    """(lo_s, hi_s, G): AABBs of groups of G consecutive sorted-space chunks
+    (the ragged tail padded with empty boxes)."""
+    m = lo.shape[0]
+    g = SUPER_GROUP
+    while -(-m // g) > SUPER_STAGE_WIDTH:
+        g *= 2
+    n_super = -(-m // g)
+    pad = n_super * g - m
+    if pad:
+        lo = torch.cat([lo, lo.new_full((pad, 3), BIG)])
+        hi = torch.cat([hi, hi.new_full((pad, 3), -BIG)])
+    return lo.reshape(n_super, g, 3).amin(1), hi.reshape(n_super, g, 3).amax(1), g
+
+
+def _slab_hits(ro_t: Tensor, inv_t: Tensor, lo_b: Tensor, hi_b: Tensor):
+    """Per-ray slab test of (bt, LANES, 3) rays against (bt or 1, K, 3) boxes:
+    (hit, tn), each (bt, LANES, K); tn is the entry distance clamped at 0. A
+    small relative pad keeps f32 rounding from dropping a grazing box."""
+    tn = ro_t.new_zeros((ro_t.shape[0], LANES, lo_b.shape[1]))
+    tf = torch.full_like(tn, BIG)
+    for ax in range(3):
+        t_a = (lo_b[:, None, :, ax] - ro_t[:, :, None, ax]) * inv_t[:, :, None, ax]
+        t_b = (hi_b[:, None, :, ax] - ro_t[:, :, None, ax]) * inv_t[:, :, None, ax]
+        tn = torch.maximum(tn, torch.minimum(t_a, t_b))
+        tf = torch.minimum(tf, torch.maximum(t_a, t_b))
+    return tf * (1.0 + 1e-6) + 1e-6 >= tn, tn
+
+
+def super_tile_mask(ro: Tensor, rd: Tensor, lo_s: Tensor, hi_s: Tensor, nt: int) -> Tensor:
+    """(nt, S) bool: whether any live lane of the tile enters the super-chunk
+    box, by per-ray slab tests in blocks of tiles. Conservative for every
+    chunk inside the box."""
+    inv = _inv_dir(rd)
+    out = torch.empty((nt, lo_s.shape[0]), dtype=torch.bool, device=ro.device)
+    for t0 in range(0, nt, EXACT_MASK_BLOCK_TILES):
+        t1 = min(t0 + EXACT_MASK_BLOCK_TILES, nt)
+        ro_t = ro[t0 * LANES:t1 * LANES].reshape(-1, LANES, 3)
+        inv_t = inv[t0 * LANES:t1 * LANES].reshape(-1, LANES, 3)
+        hit, _ = _slab_hits(ro_t, inv_t, lo_s[None], hi_s[None])
+        live = ro_t[..., 0] != PARK_DISTANCE
+        out[t0:t1] = torch.any(hit & live[:, :, None], dim=1)
+    return out
+
+
+def chunk_mask_exact(ro: Tensor, rd: Tensor, lo: Tensor, hi: Tensor, nt: int,
+                     super_gate: bool = False):
     """EXACT per-tile chunk visibility: per-ray slab tests, OR-reduced over
     each tile's live lanes, refined only over the first EXACT_GATE_CAP
     chunks of the interval list (a conservative superset); a longer interval
     list keeps its tail un-refined. Tiles go through in blocks of
     EXACT_MASK_BLOCK_TILES to bound the (rays, cap) temporaries. The per-tile
     entry bound is the min slab entry over hitting lanes. Same contract as
-    ``chunk_mask``."""
+    ``chunk_mask``.
+
+    ``super_gate`` (scenes of 64 chunks and more): before the refinement, the
+    interval list loses every chunk whose super-chunk no live lane enters
+    (``super_tile_mask``) and is re-compacted, so the survivors of the whole
+    chunk range, not only the first EXACT_GATE_CAP, fill the refined window."""
     m = lo.shape[0]
     k = min(EXACT_GATE_CAP, m)
     ids_i, entry_i, counts_i = chunk_mask(ro, rd, lo, hi, nt)
+    pos = torch.arange(m, device=ro.device)[None, :]
+    if super_gate and m >= 64:
+        lo_s, hi_s, g = super_bounds(lo, hi)
+        sup = super_tile_mask(ro, rd, lo_s, hi_s, nt)
+        keep = (pos < counts_i[:, None]) & torch.gather(sup, 1, ids_i.long() // g)
+        ids_i, entry_i, counts_i = compact_front_to_back(keep, entry_i, ids_i)
     cand = ids_i[:, :k].long()
     cnt = torch.clamp(counts_i, max=k)
     inv = _inv_dir(rd)
     inf = torch.tensor(float("inf"), dtype=ro.dtype, device=ro.device)
     # positions < k take the per-ray verdicts below; k <= pos < count keep
     # the conservative un-refined interval tail
-    pos = torch.arange(m, device=ro.device)[None, :]
     mask = (pos >= k) & (pos < counts_i[:, None])
     entry = entry_i.clone()
     for t0 in range(0, nt, EXACT_MASK_BLOCK_TILES):
@@ -206,16 +293,9 @@ def chunk_mask_exact(ro: Tensor, rd: Tensor, lo: Tensor, hi: Tensor, nt: int):
         inv_t = inv[t0 * LANES:t1 * LANES].reshape(-1, LANES, 3)
         lo_b, hi_b = lo[cand[t0:t1]], hi[cand[t0:t1]]            # (bt, k, 3)
         live = ro_t[..., 0] != PARK_DISTANCE
-        tn = torch.zeros((t1 - t0, LANES, k), dtype=ro.dtype, device=ro.device)
-        tf = torch.full_like(tn, BIG)
-        for ax in range(3):
-            t_a = (lo_b[:, None, :, ax] - ro_t[:, :, None, ax]) * inv_t[:, :, None, ax]
-            t_b = (hi_b[:, None, :, ax] - ro_t[:, :, None, ax]) * inv_t[:, :, None, ax]
-            tn = torch.maximum(tn, torch.minimum(t_a, t_b))
-            tf = torch.minimum(tf, torch.maximum(t_a, t_b))
-        # small relative pad so f32 rounding cannot drop a grazing chunk
+        hit, tn = _slab_hits(ro_t, inv_t, lo_b, hi_b)
         in_list = pos[None, :, :k] < cnt[t0:t1, None, None]
-        hit = (tf * (1.0 + 1e-6) + 1e-6 >= tn) & live[:, :, None] & in_list
+        hit = hit & live[:, :, None] & in_list
         mb = torch.any(hit, dim=1)
         mask[t0:t1, :k] = mb
         entry[t0:t1, :k] = torch.where(mb, torch.where(hit, tn, inf).amin(dim=1), 0.0)
@@ -228,8 +308,10 @@ def chunk_mask_exact(ro: Tensor, rd: Tensor, lo: Tensor, hi: Tensor, nt: int):
 
 def sweep_reference(ro: Tensor, rd: Tensor, consts: Tensor, meta: Tensor, chunk_list: Tensor,
                     counts: Tensor, entry: Tensor, det_eps: float, t_min: float,
-                    any_mode: bool = False):
-    """Plain PyTorch sweep; defines what the kernel computes.
+                    any_mode: bool = False, visits: Tensor | None = None,
+                    block_tiles: int | None = None):
+    """Plain PyTorch sweep; defines what BOTH kernels compute (the resident
+    and the streaming kernel are the same function and share this twin).
 
     For list position j = 0 .. max(counts)-1 it gathers chunk
     ``chunk_list[:, j]`` for every tile at once, evaluates the four linear
@@ -242,19 +324,48 @@ def sweep_reference(ro: Tensor, rd: Tensor, consts: Tensor, meta: Tensor, chunk_
     * any mode: the division-free sign tests; idx = chunk * C of the FIRST
       occluding chunk in list order, t stays BIG.
 
-    The kernel's early exits are skipped: they never change the result.
-    ``entry`` is accepted for the kernel's signature only.
+    The kernels' early exits are skipped: they never change the result.
+    ``visits`` ((nt,) int32, optional) receives the list positions a kernel
+    sweeps per tile before its exit vote stops it: closest mode stops once
+    ``entry`` of the next position exceeds every live lane's best t, any mode
+    once every live lane is occluded.
+
+    Tiles are independent, so they go through in blocks of ``block_tiles``
+    (default: as many as keep one (tiles, C, LANES) temporary within
+    ``REFERENCE_BLOCK_BYTES``); the result does not depend on the block.
     """
     nt = counts.shape[0]
     c = consts.shape[1]
-    dev = ro.device
-    ro_t, rd_t = ro.reshape(nt, 1, LANES, 3), rd.reshape(nt, 1, LANES, 3)
-    ox, oy, oz = ro_t.unbind(-1)
-    dx, dy, dz = rd_t.unbind(-1)
+    if block_tiles is None:
+        block_tiles = max(1, REFERENCE_BLOCK_BYTES // (4 * c * LANES))
+    ro_t, rd_t = ro.reshape(nt, LANES, 3), rd.reshape(nt, LANES, 3)
+    out = [_sweep_reference_tiles(ro_t[a:a + block_tiles], rd_t[a:a + block_tiles], consts, meta,
+                                  chunk_list[a:a + block_tiles], counts[a:a + block_tiles],
+                                  entry[a:a + block_tiles], det_eps, t_min, any_mode,
+                                  None if visits is None else visits[a:a + block_tiles])
+           for a in range(0, nt, block_tiles)]
+    if not out:
+        return ro.new_zeros(0), torch.zeros(0, dtype=torch.int32, device=ro.device)
+    return torch.cat([t for t, _ in out]).reshape(-1), torch.cat([i for _, i in out]).reshape(-1)
+
+
+def _sweep_reference_tiles(ro_t, rd_t, consts, meta, chunk_list, counts, entry, det_eps, t_min,
+                           any_mode, visits):
+    """``sweep_reference`` on one block of tiles: (best_t, best_i), each
+    (nt, LANES)."""
+    nt = counts.shape[0]
+    c = consts.shape[1]
+    dev = ro_t.device
+    ox, oy, oz = ro_t[:, None].unbind(-1)
+    dx, dy, dz = rd_t[:, None].unbind(-1)
     qx, qy, qz = _cross_rows(dx, dy, dz, ox, oy, oz)
     best_t = torch.full((nt, LANES), BIG, dtype=torch.float32, device=dev)
     best_i = torch.full((nt, LANES), -1, dtype=torch.int32, device=dev)
-    n_max = int(counts.max()) if nt else 0
+    n_max = int(counts.max())
+    if visits is not None:
+        visits.copy_(counts)
+        parked = ro_t[..., 0] == PARK_DISTANCE
+        running = torch.ones(nt, dtype=torch.bool, device=dev)
     for j in range(n_max):
         live_tile = (j < counts)[:, None]
         m = chunk_list[:, j].long()
@@ -275,18 +386,27 @@ def sweep_reference(ro: Tensor, rd: Tensor, consts: Tensor, meta: Tensor, chunk_
                      & (m1 + m2 < det2) & (tnum * det > t_min * det2))
             new = torch.any(valid, dim=1) & live_tile & (best_i < 0)
             best_i = torch.where(new, (m * c).to(torch.int32)[:, None], best_i)
-            continue
-        ok = torch.abs(det) >= det_eps
-        invd = 1.0 / torch.where(ok, det, torch.ones_like(det))
-        t, beta, gamma = tnum * invd, bnum * invd, gnum * invd
-        valid = ok & (beta > 0.0) & (gamma > 0.0) & (beta + gamma < 1.0) & (t > t_min)
-        tm = torch.where(valid, t, torch.full_like(t, BIG))
-        tmin = tm.amin(dim=1)
-        amin = torch.argmin(tm, dim=1).to(torch.int32)
-        upd = (tmin < best_t) & live_tile
-        best_t = torch.where(upd, tmin, best_t)
-        best_i = torch.where(upd, (m * c).to(torch.int32)[:, None] + amin, best_i)
-    return best_t.reshape(-1), best_i.reshape(-1)
+        else:
+            ok = torch.abs(det) >= det_eps
+            invd = 1.0 / torch.where(ok, det, torch.ones_like(det))
+            t, beta, gamma = tnum * invd, bnum * invd, gnum * invd
+            valid = ok & (beta > 0.0) & (gamma > 0.0) & (beta + gamma < 1.0) & (t > t_min)
+            tm = torch.where(valid, t, torch.full_like(t, BIG))
+            tmin = tm.amin(dim=1)
+            amin = torch.argmin(tm, dim=1).to(torch.int32)
+            upd = (tmin < best_t) & live_tile
+            best_t = torch.where(upd, tmin, best_t)
+            best_i = torch.where(upd, (m * c).to(torch.int32)[:, None] + amin, best_i)
+        if visits is not None and j + 1 < n_max:
+            # the kernels' exit vote after position j, where a next one exists
+            if any_mode:
+                go = torch.any(~parked & (best_i < 0), dim=1)
+            else:
+                go = torch.any(torch.where(parked, 0.0, best_t) >= entry[:, j + 1, None], dim=1)
+            stop = running & (j + 1 < counts) & ~go
+            visits[stop] = j + 1
+            running &= ~stop
+    return best_t, best_i
 
 
 def _check(name, x, dtype, shape):
@@ -300,41 +420,61 @@ def _check(name, x, dtype, shape):
 
 def sweep(ro: Tensor, rd: Tensor, consts: Tensor, meta: Tensor, chunk_list: Tensor,
           counts: Tensor, entry: Tensor, det_eps: float, t_min: float,
-          any_mode: bool = False):
+          any_mode: bool = False, visits: Tensor | None = None, stream: bool = False):
     """The chunk sweep over whole tiles: (t (R,) f32, idx (R,) i32), R =
-    nt * LANES. CUDA tensors launch ``csrc/sweep.cu``; CPU tensors run
-    ``sweep_reference``. Anything else raises."""
+    nt * LANES. CUDA tensors launch the resident kernel (``csrc/sweep.cu``)
+    or, with ``stream``, the streaming kernel (``csrc/sweep_stream.cu``); CPU
+    tensors run ``sweep_reference``. Anything else raises. ``visits`` as in
+    ``sweep_reference``. Each kernel counts its launches: ``sweep.launches``
+    and ``sweep.stream_launches``."""
     nt = counts.shape[0]
     m, c = consts.shape[0], consts.shape[1]
     r = nt * LANES
     f32, i32 = torch.float32, torch.int32
-    for name, x, dt, shape in (("ro", ro, f32, (r, 3)), ("rd", rd, f32, (r, 3)),
-                               ("consts", consts, f32, (m, c, NCOEF)), ("meta", meta, f32, (m, 3)),
-                               ("chunk_list", chunk_list, i32, (nt, m)),
-                               ("counts", counts, i32, (nt,)), ("entry", entry, f32, (nt, m))):
+    checked = [("ro", ro, f32, (r, 3)), ("rd", rd, f32, (r, 3)),
+               ("consts", consts, f32, (m, c, NCOEF)), ("meta", meta, f32, (m, 3)),
+               ("chunk_list", chunk_list, i32, (nt, m)), ("counts", counts, i32, (nt,)),
+               ("entry", entry, f32, (nt, m))]
+    if visits is not None:
+        checked.append(("visits", visits, i32, (nt,)))
+    for name, x, dt, shape in checked:
         _check(name, x, dt, shape)
         if x.device != ro.device:
             raise ValueError(f"sweep: {name} is on {x.device}, ro on {ro.device}")
     if ro.device.type == "cpu":
         return sweep_reference(ro, rd, consts, meta, chunk_list, counts, entry,
-                               det_eps, t_min, any_mode)
+                               det_eps, t_min, any_mode, visits)
     if ro.device.type != "cuda":
         raise ValueError(f"sweep: no kernel for device {ro.device}")
+    if stream:
+        # cp.async copies 16 bytes at a time: a chunk is 64*C bytes from the base
+        if consts.data_ptr() % 16:
+            raise ValueError("sweep: the streaming kernel needs consts aligned to 16 bytes")
+        if 2 * c * NCOEF * 4 > MAX_DYNAMIC_SMEM:
+            raise ValueError(f"sweep: two stages of {c}-triangle chunks need "
+                             f"{2 * c * NCOEF * 4} bytes of shared memory, the card gives a "
+                             f"block {MAX_DYNAMIC_SMEM}")
     out_t = torch.empty(r, dtype=f32, device=ro.device)
     out_i = torch.empty(r, dtype=i32, device=ro.device)
     lib = cuda_build.load()
-    stream = torch.cuda.current_stream(ro.device).cuda_stream
-    rc = lib.rt_sweep(ro.data_ptr(), rd.data_ptr(), consts.data_ptr(), meta.data_ptr(),
-                      chunk_list.data_ptr(), counts.data_ptr(), entry.data_ptr(),
-                      out_t.data_ptr(), out_i.data_ptr(), nt, m, c, float(det_eps),
-                      float(t_min), int(any_mode), ro.device.index or 0, stream)
+    fn = lib.rt_sweep_stream if stream else lib.rt_sweep
+    rc = fn(ro.data_ptr(), rd.data_ptr(), consts.data_ptr(), meta.data_ptr(),
+            chunk_list.data_ptr(), counts.data_ptr(), entry.data_ptr(), out_t.data_ptr(),
+            out_i.data_ptr(), None if visits is None else visits.data_ptr(), nt, m, c,
+            float(det_eps), float(t_min), int(any_mode), ro.device.index or 0,
+            torch.cuda.current_stream(ro.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"sweep kernel launch failed: {cuda_build.error_string(rc)}")
-    sweep.launches += 1
+    if nt:
+        if stream:
+            sweep.stream_launches += 1
+        else:
+            sweep.launches += 1
     return out_t, out_i
 
 
-sweep.launches = 0
+sweep.launches = 0          # launches of the resident kernel
+sweep.stream_launches = 0   # launches of the streaming kernel
 
 
 # ---------------------------------------------------------------------------
@@ -347,20 +487,23 @@ def sweep_inputs(ro: Tensor, rd: Tensor, pack: AccelPack, cfg: RenderConfig,
     """The sweep's per-query inputs: rays cast to f32 (shading may run in f64)
     and padded with parked lanes to whole tiles, and each tile's chunk list.
     ``exact_mask`` forces the exact per-ray chunk mask on or off; None picks
-    it for query widths up to ``cfg.exact_mask_rays``.
+    it for query widths up to ``cfg.exact_mask_rays`` and, in big scenes
+    (``EXACT_MASK_MIN_TRIS``), at every width. Big scenes run the exact mask
+    behind the super-chunk gate.
     Returns (ro32, rd32, chunk_list, entry, counts)."""
-    if pack.n_chunks * pack.chunk_size >= EXACT_MASK_MIN_TRIS:
-        raise NotImplementedError(
-            f"big-scene slice: {pack.n_chunks * pack.chunk_size} triangles >= "
-            f"{EXACT_MASK_MIN_TRIS} needs the super-chunk gate, not ported")
+    big = pack.n_chunks * pack.chunk_size >= EXACT_MASK_MIN_TRIS
     f32 = torch.float32
     pad = (-ro.shape[0]) % LANES
     ro32 = torch.cat([ro.to(f32), ro.new_full((pad, 3), PARK_DISTANCE, dtype=f32)])
     rd32 = torch.cat([rd.to(f32), ro.new_full((pad, 3), 1.0, dtype=f32)])
     if exact_mask is None:
-        exact_mask = ro32.shape[0] <= cfg.exact_mask_rays
-    mask_fn = chunk_mask_exact if exact_mask else chunk_mask
-    chunk_list, entry, counts = mask_fn(ro32, rd32, pack.lo, pack.hi, ro32.shape[0] // LANES)
+        exact_mask = ro32.shape[0] <= cfg.exact_mask_rays or big
+    nt = ro32.shape[0] // LANES
+    if exact_mask:
+        chunk_list, entry, counts = chunk_mask_exact(ro32, rd32, pack.lo, pack.hi, nt,
+                                                     super_gate=big)
+    else:
+        chunk_list, entry, counts = chunk_mask(ro32, rd32, pack.lo, pack.hi, nt)
     return ro32, rd32, chunk_list.contiguous(), entry.contiguous(), counts
 
 
@@ -380,7 +523,8 @@ def closest_triangle(scene: Scene, ro: Tensor, rd: Tensor, cfg: RenderConfig,
     r = ro.shape[0]
     ro32, rd32, chunk_list, entry, counts = sweep_inputs(ro, rd, pack, cfg, exact_mask)
     t, idx = sweep(ro32, rd32, pack.consts, pack.meta, chunk_list, counts, entry,
-                   float(cfg.det_epsilon), float(cfg.smallest_dist), any_mode)
+                   float(cfg.det_epsilon), float(cfg.smallest_dist), any_mode,
+                   stream=not pack.resident)
     idx = idx[:r].long()
     t = torch.where(idx >= 0, t[:r].to(ro.dtype), torch.full((r,), BIG, dtype=ro.dtype,
                                                              device=ro.device))

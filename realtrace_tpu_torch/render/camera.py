@@ -12,6 +12,7 @@ import torch
 from torch import Tensor
 
 from realtrace_tpu_torch.core import vec
+from realtrace_tpu_torch.core.types import default_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -27,7 +28,9 @@ class Camera:
 
     @staticmethod
     def make(position, target, up, fovy, width, height, dtype=torch.float32,
-             device="cpu") -> "Camera":
+             device=None) -> "Camera":
+        device = default_device(device)
+
         def t(x):
             return torch.as_tensor(x, dtype=dtype, device=device)
         return Camera(position=t(position), target=t(target), up=t(up), fovy=t(fovy),

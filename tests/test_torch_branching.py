@@ -1,0 +1,289 @@
+"""The port's dielectric branching wavefront on the CPU: against the NumPy
+oracle and the JAX renderer in f64 at tests/test_golden.py's tolerance (error
+> 1e-6 on at most 0.2% of pixels), for image and traced-ray count; that
+renders repeat bit for bit; and that scenes without dielectrics are untouched
+by the branching machinery. Also the port's device defaults."""
+import dataclasses
+import pathlib
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from oracle.cpu_reference import OracleRenderer
+from realtrace_tpu.apps import scenes as jscenes
+from realtrace_tpu.core.types import RenderConfig as JConfig
+from realtrace_tpu.core.types import SceneBuilder as JBuilder
+from realtrace_tpu.render import shade as jshade
+from realtrace_tpu.render.pipeline import render_with_stats as jrender_with_stats
+from realtrace_tpu_torch.apps import scenes
+from realtrace_tpu_torch.core.convert import config_from_dict, scene_to_numpy
+from realtrace_tpu_torch.core.types import RenderConfig, Scene, SceneBuilder
+from realtrace_tpu_torch.ops import accel
+from realtrace_tpu_torch.render import shade
+from realtrace_tpu_torch.render.pipeline import render_with_stats
+from test_torch_core import few_torch_threads, to_port  # noqa: F401 (autouse fixture)
+from test_torch_render import assert_images_match
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+F64 = torch.float64
+DETAIL = 0.25          # the coarse mesh: 672 triangles, 21 chunks of 32
+
+
+def assert_scenes_equal(got: Scene, want: Scene):
+    for f in dataclasses.fields(want):
+        a, b = getattr(got, f.name), getattr(want, f.name)
+        if dataclasses.is_dataclass(a):
+            for g in dataclasses.fields(a):
+                torch.testing.assert_close(getattr(a, g.name), getattr(b, g.name), rtol=0, atol=0)
+        elif a is not None:
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype,jdtype", [(torch.float32, jnp.float32), (F64, jnp.float64)],
+                         ids=["f32", "f64"])
+def test_full_primitive_scene_equals_jax_scene(dtype, jdtype):
+    jscene, jcam = jscenes.full_primitive_scene(dtype=jdtype)
+    scene, cam = scenes.full_primitive_scene(dtype=dtype, device="cpu")
+    assert cam == jcam and scene.has_dielectrics()
+    assert_scenes_equal(scene, to_port(jscene))
+
+
+def test_full_primitive_scene_against_oracle_and_jax():
+    """The scene of tests/test_golden.py::test_full_primitives_with_dielectric."""
+    jscene, cam = jscenes.full_primitive_scene(dtype=jnp.float64)
+    jcfg = JConfig(max_depth=3)
+    jcam = jscenes.make_camera(cam, 48, 32, dtype=jnp.float64)
+    scene, _ = scenes.full_primitive_scene(dtype=F64, device="cpu")
+    got, n = render_with_stats(scene, scenes.make_camera(cam, 48, 32, dtype=F64, device="cpu"),
+                               config_from_dict(dataclasses.asdict(jcfg)))
+    assert_images_match(got.numpy(), OracleRenderer(jscene, jcfg).render(jcam))
+    want, jn = jrender_with_stats(jscene, jcam, jcfg)
+    assert_images_match(got.numpy(), np.asarray(want))
+    assert n == int(jn)
+
+
+def test_dielectric_depth_zero_and_one():
+    """Depth 0 casts no child; depth 1 casts both children of the glass."""
+    jscene, cam = jscenes.full_primitive_scene(dtype=jnp.float64)
+    scene, _ = scenes.full_primitive_scene(dtype=F64, device="cpu")
+    for depth in (0, 1):
+        jcfg = JConfig(max_depth=depth)
+        jcam = jscenes.make_camera(cam, 40, 24, dtype=jnp.float64)
+        got, n = render_with_stats(scene, scenes.make_camera(cam, 40, 24, dtype=F64,
+                                                             device="cpu"),
+                                   config_from_dict(dataclasses.asdict(jcfg)))
+        assert_images_match(got.numpy(), OracleRenderer(jscene, jcfg).render(jcam))
+        assert n == int(jrender_with_stats(jscene, jcam, jcfg)[1])
+
+
+GLASS_SIZE = 128
+
+
+@pytest.fixture(scope="module")
+def glass_case():
+    """A glass sphere over the coarse mesh at 128x128 (16 tiles, so both
+    packages take their tile paths), rendered in f64 by the JAX package with
+    bruteforce and by the NumPy oracle.
+
+    The JAX wavefront has a fixed capacity per level and drops the children
+    past it (its ``dropped_children_coeff``); the port compacts dynamically and
+    drops none. At this size the JAX render loses a few last-level children
+    (the pixels that differ stay inside the 0.2% of the golden tolerance); at
+    64x64, where the glass fills most tiles, it loses far more, so that size
+    is held against the oracle only."""
+    tv, tc = scenes.mesh_arrays(seed=0, detail=DETAIL)
+    b = JBuilder(dtype=jnp.float64)
+    b.ambient, b.background = (1.0, 1.0, 1.0), (0.1, 0.3, 0.6)
+    b.add_light((0, 30, 30), (0.5, 1.0, 1.0))
+    mat = b.material(ka=0.2, kd=0.9, ks=0.4, kr=0.4, kt=0.0, eta=3.0)
+    for tri, col in zip(15.0 * tv, tc):
+        b.add_triangle(tri[0], tri[1], tri[2], vertex_colors=col, material=mat)
+    b.add_sphere((20.0, 15.0, 20.0), 10.0, color=(0.95, 0.95, 1.0),
+                 material=b.material(ka=0.1, kd=0.2, ks=0.3, kr=0.3, kt=0.8, eta=1.5))
+    jscene = b.build()
+    assert jscene.has_dielectrics()
+    scene, cam = scenes.glass_mesh_scene(detail=DETAIL, dtype=F64, device="cpu")
+    assert_scenes_equal(scene, to_port(jscene))
+    jcfg = JConfig(max_depth=3)
+    jcam = jscenes.make_camera(cam, GLASS_SIZE, GLASS_SIZE, dtype=jnp.float64)
+    want, jn = jrender_with_stats(jscene, jcam, jcfg)
+    return scene, cam, jcfg, np.asarray(want), int(jn), jscene
+
+
+@pytest.mark.parametrize("mode", ["bruteforce", "sweep"])
+def test_glass_over_mesh_equals_jax(glass_case, mode):
+    scene, cam, jcfg, want, jn, _ = glass_case
+    cfg = dataclasses.replace(config_from_dict(dataclasses.asdict(jcfg)), accel=mode)
+    if mode == "sweep":
+        scene = accel.with_chunks(scene, cfg)
+    got, n = render_with_stats(scene, scenes.make_camera(cam, GLASS_SIZE, GLASS_SIZE, dtype=F64,
+                                                         device="cpu"), cfg)
+    assert_images_match(got.numpy(), want)
+    assert n == jn
+    # the glass is in the frame and refracts: it is not the background
+    assert 0.02 < (np.abs(got.numpy() - np.asarray([0.1, 0.3, 0.6])).max(-1) > 1e-3).mean()
+
+
+def test_glass_over_mesh_equals_oracle(glass_case, size=64):
+    """The glass-filled frame on which the JAX wavefront overflows."""
+    scene, cam, jcfg, *_, jscene = glass_case
+    want = OracleRenderer(jscene, jcfg).render(jscenes.make_camera(cam, size, size,
+                                                                   dtype=jnp.float64))
+    got, _ = render_with_stats(scene, scenes.make_camera(cam, size, size, dtype=F64,
+                                                         device="cpu"),
+                               config_from_dict(dataclasses.asdict(jcfg)))
+    assert_images_match(got.numpy(), want, max_bad_frac=0.0)
+
+
+def test_glass_render_is_bit_identical_twice(glass_case):
+    _, cam, *_ = glass_case
+    cfg = RenderConfig(max_depth=3, accel="sweep")
+    scene, _ = scenes.glass_mesh_scene(detail=DETAIL, device="cpu")
+    scene = accel.with_chunks(scene, cfg)
+    camera = scenes.make_camera(cam, 64, 64, device="cpu")
+    a, na = render_with_stats(scene, camera, cfg)
+    b, nb = render_with_stats(scene, camera, cfg)
+    assert na == nb and torch.equal(a, b)
+    assert na > 64 * 64
+
+
+def test_children_geom_equals_jax_on_random_dielectric_hits():
+    """Fresnel split, Beer attenuation, both kinds of total internal
+    reflection: every output of the child geometry against JAX's, in f64."""
+    from realtrace_tpu.ops.intersect import Hit as JHit
+    from realtrace_tpu_torch.ops.intersect import Hit
+    rng = np.random.default_rng(4)
+    r = 600
+    nrm = rng.standard_normal((r, 3)) * rng.uniform(0.5, 2.0, (r, 1))
+    rd = rng.standard_normal((r, 3))
+    rd /= np.linalg.norm(rd, axis=1, keepdims=True)
+    f = dict(valid=rng.uniform(size=r) < 0.9, t=rng.uniform(0.1, 30.0, r),
+             family=np.ones(r, np.int32), index=np.zeros(r, np.int32),
+             position=rng.uniform(-5, 5, (r, 3)), normal=nrm, color=rng.uniform(0, 1, (r, 3)),
+             ka=np.full(r, 0.2), kd=np.full(r, 0.9), ks=np.full(r, 0.4),
+             kr=np.where(rng.uniform(size=r) < 0.8, 0.3, 0.0),
+             kt=np.where(rng.uniform(size=r) < 0.7, 0.8, 0.0),
+             eta=rng.choice([0.5, 1.0, 1.5, 2.5], r))
+    coeff = rng.uniform(0, 1, (r, 3)) * (rng.uniform(size=(r, 1)) < 0.9)
+    ro = rng.uniform(-5, 5, (r, 3))
+    jhit = JHit(**{k: jnp.asarray(v) for k, v in f.items()})
+    jscene, _ = jscenes.full_primitive_scene(dtype=jnp.float64)
+    want = jshade._children_geom(jscene, jhit, jnp.asarray(ro), jnp.asarray(rd),
+                                 jnp.asarray(coeff), JConfig())
+    hit = Hit(**{k: torch.as_tensor(v) for k, v in f.items()})
+    scene, _ = scenes.full_primitive_scene(dtype=F64, device="cpu")
+    got = shade._children_geom(scene, hit, torch.as_tensor(ro), torch.as_tensor(rd),
+                               torch.as_tensor(coeff), RenderConfig())
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    assert 50 < int(got[1].sum()) < r
+    for g_child, w_child in zip(got[2:], want[2:]):
+        for g, w in zip(g_child, w_child):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-12, atol=1e-12)
+    live_t = (got[3][2] > 0).any(-1)
+    assert 10 < int(live_t.sum()) < int(got[1].sum())       # some refraction children died
+    # without branching the reflection child of non-dielectric lanes is the same
+    plain = dataclasses.replace(hit, kt=torch.zeros_like(hit.kt))
+    a = shade._children_geom(scene, plain, torch.as_tensor(ro), torch.as_tensor(rd),
+                             torch.as_tensor(coeff), RenderConfig(), branching=False)
+    b = shade._children_geom(scene, plain, torch.as_tensor(ro), torch.as_tensor(rd),
+                             torch.as_tensor(coeff), RenderConfig())
+    assert a[3] is None and not bool(b[1].any())
+    for x, y in zip(a[2], b[2]):
+        assert torch.equal(x, y)
+    assert not bool((b[3][2] > 0).any())
+
+
+def test_add_tiles_sums_duplicates_in_wavefront_order():
+    rng = np.random.default_rng(0)
+    tiles = torch.as_tensor([3, 0, 3, 5, 0, 3, 7])
+    x = torch.as_tensor(rng.standard_normal((7, 4, 3)), dtype=torch.float32)
+    acc = torch.as_tensor(rng.standard_normal((8, 4, 3)), dtype=torch.float32)
+    want = acc.clone()
+    for k, t in enumerate(tiles.tolist()):      # one summand after the other
+        want[t] = want[t] + x[k]
+    got = shade._add_tiles(acc, tiles, x, unique=False)
+    assert torch.equal(got, want)
+    assert torch.equal(shade._add_tiles(acc, tiles[:0], x[:0], unique=False), acc)
+    uniq = torch.as_tensor([1, 4, 2])
+    assert torch.equal(shade._add_tiles(acc, uniq, x[:3], unique=True),
+                       shade._add_tiles(acc, uniq, x[:3], unique=False))
+
+
+@pytest.mark.parametrize("mode", ["bruteforce", "sweep"])
+def test_scene_without_dielectrics_is_untouched_by_branching(monkeypatch, mode):
+    """Forcing the branching wavefront on a scene without dielectrics (every
+    refraction child is dead and compacted away) gives the same image, bit
+    for bit, and the same ray count as the non-branching path."""
+    cfg = RenderConfig(max_depth=3, accel=mode)
+    scene, cam = scenes.mesh_scene(detail=DETAIL, device="cpu")
+    if mode == "sweep":
+        scene = accel.with_chunks(scene, cfg)
+    camera = scenes.make_camera(cam, 64, 48, device="cpu")
+    assert not scene.has_dielectrics()
+    want, n = render_with_stats(scene, camera, cfg)
+    monkeypatch.setattr(Scene, "has_dielectrics", lambda self: True)
+    got, n_b = render_with_stats(scene, camera, cfg)
+    assert n_b == n and torch.equal(got, want)
+    assert n > 64 * 48
+
+
+def test_beer_sigma_crosses_the_config_conversion():
+    cfg = config_from_dict(dataclasses.asdict(JConfig(beer_sigma=(0.1, 0.2, 0.3))))
+    assert cfg.beer_sigma == (0.1, 0.2, 0.3)
+    assert RenderConfig().beer_sigma == tuple(JConfig().beer_sigma)
+    jscene, cam = jscenes.full_primitive_scene(dtype=jnp.float64)
+    jcfg = JConfig(max_depth=2, beer_sigma=(1.0, 0.0, 2.0))
+    scene, _ = scenes.full_primitive_scene(dtype=F64, device="cpu")
+    got, _ = render_with_stats(scene, scenes.make_camera(cam, 40, 24, dtype=F64, device="cpu"),
+                               config_from_dict(dataclasses.asdict(jcfg)))
+    want = OracleRenderer(jscene, jcfg).render(jscenes.make_camera(cam, 40, 24,
+                                                                   dtype=jnp.float64))
+    assert_images_match(got.numpy(), want)
+
+
+def test_glass_scene_roundtrips_through_numpy():
+    scene, _ = scenes.glass_mesh_scene(detail=0.2, device="cpu")
+    d = scene_to_numpy(scene)
+    assert d["sph_materials"]["kt"].tolist() == pytest.approx([0.8])
+    assert d["sph_materials"]["eta"].tolist() == pytest.approx([1.5])
+    from realtrace_tpu_torch.core.convert import scene_from_numpy
+    assert_scenes_equal(scene_from_numpy(d, device="cpu"), scene)
+
+
+# ---- device defaults: the card unless the caller asks for the CPU ----------
+
+@pytest.mark.parametrize("make", [
+    lambda: SceneBuilder().build(),
+    lambda: scenes.sphere_plane_scene(),
+    lambda: scenes.mesh_scene(detail=0.2),
+    lambda: scenes.make_camera(scenes.SERIAL_CAM, 8, 8),
+], ids=["scene_builder", "sphere_plane", "mesh", "camera"])
+def test_constructors_without_device_raise_without_a_card(make):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device works")
+    with pytest.raises((RuntimeError, AssertionError)):
+        make()
+
+
+def test_cli_without_device_fails_without_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device works")
+    proc = subprocess.run([sys.executable, "-m", "realtrace_tpu_torch.apps.cli", "--scene",
+                           "sphere_plane", "--width", "8", "--height", "8", "--out",
+                           str(tmp_path / "x.png")], cwd=REPO, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode != 0
+    assert not (tmp_path / "x.png").exists()
+
+
+@pytest.mark.parametrize("argv", [["--scene", "glass"], ["--scene", "mesh", "--copies", "2"]],
+                         ids=["glass", "copies"])
+def test_cli_new_scenes_parse(argv):
+    from realtrace_tpu_torch.apps.cli import build_parser
+    args = build_parser().parse_args(argv)
+    assert args.device == "cuda" and args.copies in (1, 2)

@@ -25,9 +25,21 @@ from realtrace_tpu_torch.io.obj import load_obj_scene
 REPO = Path(__file__).resolve().parent.parent
 
 
+@pytest.fixture(autouse=True, scope="module")
+def few_torch_threads():
+    """The suite runs in several worker processes on one machine. With every
+    worker's torch at the full thread count, the loops of small ops (the
+    sweep's twin, the chunk masks) spend their time waiting at thread
+    barriers; two threads a worker keep them near their single-process speed."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def to_port(jax_scene, dtype=None):
     """The JAX scene's leaves as numpy, loaded into the port's Scene."""
-    return scene_from_numpy(scene_to_numpy(jax_scene), dtype=dtype)
+    return scene_from_numpy(scene_to_numpy(jax_scene), dtype=dtype, device="cpu")
 
 
 def t64(a):
@@ -67,7 +79,7 @@ def test_normalize_and_refract_grads_finite_on_dead_lanes():
 def test_scene_roundtrip_through_numpy_matches_jax_builder():
     jscene, _ = jscenes.full_primitive_scene(dtype=jnp.float64)
     d = scene_to_numpy(jscene)
-    scene = scene_from_numpy(d)
+    scene = scene_from_numpy(d, device="cpu")
     assert scene.dtype == torch.float64
     assert (scene.n_triangles, scene.n_spheres, scene.n_planes, scene.n_cylinders) == (1, 1, 1, 1)
     back = scene_to_numpy(scene)
@@ -92,7 +104,7 @@ def test_builder_matches_jax_builder():
         return b.build()
 
     want = scene_to_numpy(fill(JBuilder(dtype=jnp.float64)))
-    got = scene_to_numpy(fill(SceneBuilder(dtype=torch.float64)))
+    got = scene_to_numpy(fill(SceneBuilder(dtype=torch.float64, device="cpu")))
     for k, v in want.items():
         if isinstance(v, dict):
             for kk in v:
@@ -102,7 +114,7 @@ def test_builder_matches_jax_builder():
 
 
 def test_has_dielectrics_reads_the_tensors():
-    scene, _ = scenes.sphere_plane_scene()
+    scene, _ = scenes.sphere_plane_scene(device="cpu")
     assert not scene.has_dielectrics()
     m = scene.sph_materials
     glass = dataclasses.replace(m, kr=torch.ones_like(m.kr), kt=torch.ones_like(m.kt))
@@ -123,7 +135,7 @@ def test_camera_rays_match_jax_f64(w, h):
     cam = dict(position=(10.0, 6.0, 10.0), target=(0.0, 0.5, 0.0), up=(0.0, 1.0, 0.0),
                fovy=45.0)
     jcam = jscenes.make_camera(cam, w, h, dtype=jnp.float64)
-    pcam = scenes.make_camera(cam, w, h, dtype=torch.float64)
+    pcam = scenes.make_camera(cam, w, h, dtype=torch.float64, device="cpu")
     np.testing.assert_allclose(pcam.ray_directions().numpy(),
                                np.asarray(jcam.ray_directions()), rtol=0, atol=1e-12)
     rng = np.random.default_rng(1)
@@ -148,7 +160,7 @@ def test_obj_loader_matches_jax_loader(tmp_path):
                    "vn 0 0 1\nf 1/1/1 2/2/1 3/3/1\nf 1/1/1 3/3/1 4//1\n")
     tex = tmp_path / "tex.png"
     save_png(tex, np.random.default_rng(3).uniform(0, 1, (4, 4, 3)))
-    jb, pb = JBuilder(dtype=jnp.float64), SceneBuilder(dtype=torch.float64)
+    jb, pb = JBuilder(dtype=jnp.float64), SceneBuilder(dtype=torch.float64, device="cpu")
     jload_obj(jb, obj, texture_path=tex, scale=2.0)
     load_obj_scene(pb, obj, texture_path=tex, scale=2.0)
     want, got = scene_to_numpy(jb.build()), scene_to_numpy(pb.build())

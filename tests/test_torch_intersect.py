@@ -12,7 +12,7 @@ from realtrace_tpu.core.types import RenderConfig as JConfig
 from realtrace_tpu.ops import intersect as jint
 from realtrace_tpu_torch.core.types import RenderConfig
 from realtrace_tpu_torch.ops import intersect
-from test_torch_core import to_port
+from test_torch_core import few_torch_threads, to_port  # noqa: F401 (autouse fixture)
 
 CFG = RenderConfig()
 JCFG = JConfig()

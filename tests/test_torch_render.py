@@ -21,7 +21,7 @@ from realtrace_tpu_torch.apps import scenes
 from realtrace_tpu_torch.core.convert import config_from_dict
 from realtrace_tpu_torch.ops import accel
 from realtrace_tpu_torch.render.pipeline import render_image, render_with_stats, to_rgba8
-from test_torch_core import to_port
+from test_torch_core import few_torch_threads, to_port  # noqa: F401 (autouse fixture)
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 F64 = torch.float64
@@ -39,7 +39,8 @@ def port_render(jscene, cam, jcfg, w, h):
     scene = to_port(jscene, dtype=F64)
     if cfg.accel == "sweep":
         scene = accel.with_chunks(scene, cfg)
-    return render_image(scene, scenes.make_camera(cam, w, h, dtype=F64), cfg).numpy()
+    return render_image(scene, scenes.make_camera(cam, w, h, dtype=F64, device="cpu"),
+                        cfg).numpy()
 
 
 def oracle_case(jscene, cam, jcfg, w, h):
@@ -100,7 +101,7 @@ def test_coarse_mesh_against_jax_bruteforce():
     the port's sweep and bruteforce against the JAX bruteforce render of the
     same arrays; ray counts agree too."""
     tv, tc = scenes.mesh_arrays(seed=0, detail=0.36)
-    scene, cam = scenes.mesh_scene(seed=0, detail=0.36, dtype=F64)
+    scene, cam = scenes.mesh_scene(seed=0, detail=0.36, dtype=F64, device="cpu")
     b = JBuilder(dtype=jnp.float64)
     b.ambient, b.background = (1.0, 1.0, 1.0), (0.1, 0.3, 0.6)
     b.add_light((0, 30, 30), (0.5, 1.0, 1.0))
@@ -112,7 +113,7 @@ def test_coarse_mesh_against_jax_bruteforce():
     jcfg = JConfig(max_depth=3)
     want, jn = jrender_with_stats(jscene, jscenes.make_camera(cam, 64, 48, dtype=jnp.float64),
                                   jcfg)
-    camera = scenes.make_camera(cam, 64, 48, dtype=F64)
+    camera = scenes.make_camera(cam, 64, 48, dtype=F64, device="cpu")
     for mode in ("bruteforce", "sweep"):
         cfg = dataclasses.replace(config_from_dict(dataclasses.asdict(jcfg)), accel=mode)
         s = accel.with_chunks(scene, cfg) if mode == "sweep" else scene
@@ -126,24 +127,26 @@ def test_coarse_mesh_against_jax_bruteforce():
 
 def test_all_miss_frame_is_background():
     """No primary hit: the sweep sees empty wavefronts after level 0."""
-    scene, cam = scenes.mesh_scene(detail=0.2, dtype=F64)
+    scene, cam = scenes.mesh_scene(detail=0.2, dtype=F64, device="cpu")
     cfg = config_from_dict({"max_depth": 2, "accel": "pallas"})
     scene = accel.with_chunks(scene, cfg)
     away = dict(cam, target=(120.0, 120.0, 0.0))
-    img, n = render_with_stats(scene, scenes.make_camera(away, 40, 30, dtype=F64), cfg)
+    img, n = render_with_stats(scene, scenes.make_camera(away, 40, 30, dtype=F64,
+                                                        device="cpu"), cfg)
     assert n == 40 * 30
     assert torch.equal(img, torch.tensor([0.1, 0.3, 0.6], dtype=F64).expand_as(img))
 
 
-def test_dielectric_scene_raises():
+def test_dielectric_scene_renders():
+    """A scene with a dielectric takes the branching wavefront."""
     jscene, cam = jscenes.full_primitive_scene(dtype=jnp.float64)
-    with pytest.raises(NotImplementedError, match="branching"):
-        port_render(jscene, cam, JConfig(max_depth=2), 8, 8)
+    assert to_port(jscene).has_dielectrics()
+    oracle_case(jscene, cam, JConfig(max_depth=2), 24, 16)
 
 
 def test_rgba8_and_non_tile_sizes():
-    scene, cam = scenes.sphere_plane_scene(dtype=F64)
-    img, n = render_with_stats(scene, scenes.make_camera(cam, 37, 29, dtype=F64),
+    scene, cam = scenes.sphere_plane_scene(dtype=F64, device="cpu")
+    img, n = render_with_stats(scene, scenes.make_camera(cam, 37, 29, dtype=F64, device="cpu"),
                                config_from_dict({"max_depth": 2}))
     assert img.shape == (29, 37, 3) and n > 37 * 29
     rgba = to_rgba8(img)

@@ -16,7 +16,7 @@ from realtrace_tpu.ops.pallas import trace as jtrace
 from realtrace_tpu_torch.apps.scenes import mesh_arrays
 from realtrace_tpu_torch.core.types import PARK_DISTANCE, RenderConfig
 from realtrace_tpu_torch.ops import accel, sweep
-from test_torch_core import to_port
+from test_torch_core import few_torch_threads, to_port  # noqa: F401 (autouse fixture)
 
 CFG = RenderConfig(accel="sweep", chunk_size=32)
 JCFG = JConfig(accel="pallas", chunk_size=32)
@@ -196,6 +196,19 @@ def test_sweep_wrapper_checks_and_limits():
         sweep.sweep(ro32.double(), ro32, pack.consts, pack.meta, *lists, 1e-7, 1e-4)
     with pytest.raises(ValueError):
         sweep.sweep(ro32[:-1], ro32, pack.consts, pack.meta, *lists, 1e-7, 1e-4)
-    big = dataclasses.replace(pack, consts=pack.consts.repeat(2000, 1, 1))
-    with pytest.raises(NotImplementedError, match="big-scene"):
-        sweep.closest_triangle(ps, torch.as_tensor(ro), torch.as_tensor(rd), CFG, pack=big)
+    with pytest.raises(ValueError, match="visits"):
+        sweep.sweep(ro32, ro32, pack.consts, pack.meta, *lists, 1e-7, 1e-4,
+                    visits=torch.zeros(2, dtype=torch.int32))
+    # 65,536 triangle slots and more: the query runs, through the big-scene
+    # masks (2,100 copies of the pack, all but the first moved far away)
+    rep = 2100
+    far = (torch.arange(rep).repeat_interleave(pack.n_chunks) * 1000.0)[:, None] * torch.tensor(
+        [0.0, 1.0, 0.0])
+    big = sweep.AccelPack(pack.consts.repeat(rep, 1, 1), pack.meta.repeat(rep, 1) + far,
+                          pack.lo.repeat(rep, 1) + far, pack.hi.repeat(rep, 1) + far,
+                          pack.perm.repeat(rep), pack.chunk_size)
+    assert big.n_chunks * big.chunk_size >= sweep.EXACT_MASK_MIN_TRIS and not big.resident
+    tb, ib = sweep.closest_triangle(ps, torch.as_tensor(ro), torch.as_tensor(rd), CFG, pack=big)
+    assert 0 < int((idx >= 0).sum()) < 777
+    assert torch.equal(ib, idx)
+    torch.testing.assert_close(tb, t, rtol=1e-5, atol=0)
