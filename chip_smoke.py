@@ -17,21 +17,28 @@ and the script exits 1 without printing a result:
    (exact mask behind the super-chunk gate), reflection and shadow
    wavefronts, each also against the resident kernel, bit for bit. Hit/miss
    and triangle must agree with the twin on all but 1e-5 of the rays; where
-   both hit the same triangle, t agrees to rtol 1e-5;
+   both hit the same triangle, t agrees to rtol 1e-5. Kernels and twin run
+   with the warps' chunk gate; each comparison also holds the kernel's
+   ``tested`` counts to the twin's, the kernel with the gate off to the
+   kernel with it on, and the kernel on the other list (interval for exact,
+   exact for interval) to the kernel on this one, all bit for bit;
 4. the main paths, each with both launch counts set to 0 just before and read
    just after: render_with_stats at 1920x1080, depth 3, shadows,
    accel="sweep" on mesh_scene (resident kernel), on duplicated_mesh_scene(8)
    (streaming kernel, big-scene masks) and on glass_mesh_scene (the branching
    wavefront, rendered twice: bit-equal); each against the same render
-   through the twin (image error > 1e-4 on at most 0.2% of pixels); the
-   golden128 scene in f32 against tests/oracle/golden128.npz (error > 1e-4 on
+   through the twin (image error > 1e-4 on at most 0.2% of pixels; the twin
+   renders from the exact lists, the kernels from the card's list policy);
+   the same frames under the other list policy (0 pixels over 1e-4, equal
+   ray counts); the golden128 scene in f32 against tests/oracle/golden128.npz (error > 1e-4 on
    at most 0.5% of pixels); full_primitive_scene (a dielectric cylinder)
    against the NumPy oracle in f64 (error > 1e-6 on at most 0.2%) and in f32
    (error > 1e-4 on at most 2%);
 5. timing with CUDA events after one warm-up frame: mesh_scene's serial and
    close framings, the x4, x8, x16 and glass frames; each kernel beside the
    twin on its 1080p primary query, with the least time the card could take
-   for the swept (ray, triangle) pairs; the two kernels side by side on the
+   for the (ray, triangle) pairs its warps tested, and alone on the
+   reflection and shadow wavefronts; the two kernels side by side on the
    x2 and x8 scenes' primary queries. Information, not a benchmark.
 
 The line before the last is {"kernels": [...]}; the last line is
@@ -61,6 +68,7 @@ CLOSE_POSITION = (0.0, 6.0, 14.0)  # the close (hit-heavy) framing
 FP32_INSTR_PER_S = 67e12 / 2
 HBM_BYTES_PER_S = 3.35e12
 PAIR_INSTRUCTIONS = 38             # per (ray, triangle) pair, closest mode (query_times)
+PAIR_INSTRUCTIONS_ANY = 39         # any mode: the forms, then 6 multiplies and 1 add
 
 failures: list[str] = []
 
@@ -104,15 +112,32 @@ def scene128(dtype, device):
 
 @contextlib.contextmanager
 def twin_sweep():
-    """Route every sweep of the port through the plain PyTorch twin."""
+    """Route every sweep of the port through the plain PyTorch twin, on the
+    CPU's list policy (the twin walks every listed position for all tiles of
+    a block, so it wants the short exact lists; results do not depend on the
+    list)."""
     from realtrace_tpu_torch.ops import sweep
 
     kernel = sweep.sweep
     sweep.sweep = lambda *a, stream=False, **k: sweep.sweep_reference(*a, **k)
     try:
-        yield
+        with list_policy(False):
+            yield
     finally:
         sweep.sweep = kernel
+
+
+@contextlib.contextmanager
+def list_policy(interval_on_cuda: bool):
+    """Run the block under one of the two list policies for CUDA tensors."""
+    from realtrace_tpu_torch.ops import sweep
+
+    saved = sweep.INTERVAL_LISTS_ON_CUDA
+    sweep.INTERVAL_LISTS_ON_CUDA = interval_on_cuda
+    try:
+        yield
+    finally:
+        sweep.INTERVAL_LISTS_ON_CUDA = saved
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -130,32 +155,51 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 def kernel_vs_twin(name, ro, rd, pack, cfg, exact_mask, errs, stream=False):
-    """Compare a kernel with the twin on one query's inputs, both modes; the
-    streaming kernel also with the resident kernel, bit for bit."""
+    """Compare a kernel with the twin on one query's inputs, both modes, with
+    the chunk gate: results and ``tested``; the kernel with the gate off and
+    the kernel on the other list against itself; the streaming kernel also
+    with the resident kernel; all bit for bit."""
     import torch
 
     from realtrace_tpu_torch.ops import sweep
 
     n = ro.shape[0]
     ro32, rd32, chunk_list, entry, counts = sweep.sweep_inputs(ro, rd, pack, cfg, exact_mask)
+    _, _, *other = sweep.sweep_inputs(ro, rd, pack, cfg, not exact_mask)
     allowed = int(MISMATCH_FRAC * n)
     kind = "stream" if stream else "resident"
+    boxes = dict(lo=pack.lo, hi=pack.hi)
     for any_mode in (False, True):
-        args = (ro32, rd32, pack.consts, pack.meta, chunk_list, counts, entry,
-                float(cfg.det_epsilon), float(cfg.smallest_dist), any_mode)
-        kt, ki = sweep.sweep(*args, stream=stream)
-        rt, ri = sweep.sweep_reference(*args)
+        tail = (float(cfg.det_epsilon), float(cfg.smallest_dist), any_mode)
+        args = (ro32, rd32, pack.consts, pack.meta, chunk_list, counts, entry, *tail)
+        k_n, r_n = (torch.zeros((counts.shape[0], sweep.WARPS), dtype=torch.int32,
+                                device=ro.device) for _ in range(2))
+        kt, ki = sweep.sweep(*args, stream=stream, tested=k_n, **boxes)
+        rt, ri = sweep.sweep_reference(*args, tested=r_n, **boxes)
         torch.cuda.synchronize()
         mode = "any" if any_mode else "closest"
+        check(torch.equal(k_n, r_n), f"{name} [{kind}, {mode}]: tested equals the twin's")
+        gt, gi = sweep.sweep(*args, stream=stream)
+        check(torch.equal(gi, ki) and torch.equal(gt, kt),
+              f"{name} [{kind}, {mode}]: gate off equals gate on bit for bit")
+        ot, oi = sweep.sweep(ro32, rd32, pack.consts, pack.meta, other[0], other[2], other[1],
+                             *tail, stream=stream, **boxes)
+        live = ro32[:, 0] != sweep.PARK_DISTANCE
+        check(torch.equal(oi[live] >= 0, ki[live] >= 0) and (
+            any_mode or (torch.equal(oi[live], ki[live]) and torch.equal(ot[live], kt[live]))),
+              f"{name} [{kind}, {mode}]: interval list and exact list give equal results")
         if stream:
-            k1t, k1i = sweep.sweep(*args)
+            k1t, k1i = sweep.sweep(*args, **boxes)
             check(torch.equal(ki, k1i) and torch.equal(kt, k1t),
                   f"{name} [{mode}]: streaming kernel equals resident kernel bit for bit")
         kt, ki, rt, ri = kt[:n], ki[:n], rt[:n], ri[:n]
         hit_mis = int(((ki >= 0) != (ri >= 0)).sum())
+        work = (f"mean positions listed per tile {float(counts.float().mean()):.1f} "
+                f"(other list {float(other[2].float().mean()):.1f}), tested per warp "
+                f"{float(r_n.float().mean()):.2f}")
         if any_mode:
             log(f"  {name} [{kind}, {mode}]: {n} rays, {int((ri >= 0).sum())} occluded, "
-                f"{hit_mis} hit/miss mismatches (allowed {allowed})")
+                f"{hit_mis} hit/miss mismatches (allowed {allowed}), {work}")
             check(hit_mis <= allowed, f"{name} [{kind}] any-mode agreement")
             continue
         idx_mis = int(((ki != ri) & (ki >= 0) & (ri >= 0)).sum())
@@ -166,8 +210,7 @@ def kernel_vs_twin(name, ro, rd, pack, cfg, exact_mask, errs, stream=False):
         errs.append(max_err)
         log(f"  {name} [{kind}, {mode}]: {n} rays, {int((ri >= 0).sum())} hits, {hit_mis} "
             f"hit/miss and {idx_mis} triangle mismatches (allowed {allowed}), {t_bad} t beyond "
-            f"rtol {T_RTOL}, max |dt| {max_err:.3e}, mean chunks/tile "
-            f"{float(counts.float().mean()):.1f}")
+            f"rtol {T_RTOL}, max |dt| {max_err:.3e}, {work}")
         check(hit_mis + idx_mis <= allowed and t_bad <= allowed,
               f"{name} [{kind}] closest-mode agreement")
 
@@ -232,38 +275,52 @@ def main_path(name, scene, camera, cfg):
     return img, nrays, k1, k2
 
 
-def query_times(name, ro, rd, pack, cfg, stream, twin_reps):
-    """One kernel's 1080p closest query: its time, the twin's, and the least
-    time the card could take. The bound counts the (ray, triangle) pairs of
-    the list positions the kernel swept before its early exits (its
-    ``visits`` output; the list lengths ``counts`` are only an upper limit),
-    each pair as PAIR_INSTRUCTIONS unfused FP32 instructions (18 multiplies,
-    15 adds and subtractions for the four forms, 3 multiplies, 1 add and 1
-    division for the divided tests; compares and selects not counted) at
-    FP32_INSTR_PER_S, against each input byte read once (rays, the whole
-    constant table, lists, entries, counts) and each output byte written once
-    at HBM_BYTES_PER_S."""
+def query_times(name, ro, rd, pack, cfg, stream, twin_reps, any_mode=False):
+    """One kernel on one 1080p query: its time, the twin's (``twin_reps`` 0:
+    not timed), and the least time the card could take. The bound counts the
+    (ray, triangle) pairs the function requires at warp granularity: the
+    list positions each warp tested (the kernel's ``tested`` output, equal to
+    the twin's on the card) times its 128 rays times the chunk size, each
+    pair as PAIR_INSTRUCTIONS unfused FP32 instructions (18 multiplies, 15
+    adds and subtractions for the four forms, 3 multiplies, 1 add and 1
+    division for the divided tests; compares and selects not counted; any
+    mode PAIR_INSTRUCTIONS_ANY) at FP32_INSTR_PER_S, against each input byte
+    read once (rays, the whole constant table, boxes, lists, entries, counts)
+    and each output byte written once at HBM_BYTES_PER_S. Beside it the pair
+    count at tile granularity, as the kernels worked before the gate: the
+    positions a tile walks until its last warp leaves, for all 1024 lanes."""
     import torch
 
     from realtrace_tpu_torch.ops import sweep
 
     ro32, rd32, chunk_list, entry, counts = sweep.sweep_inputs(ro, rd, pack, cfg)
     args = (ro32, rd32, pack.consts, pack.meta, chunk_list, counts, entry,
-            float(cfg.det_epsilon), float(cfg.smallest_dist), False)
-    visits = torch.zeros_like(counts)
-    sweep.sweep(*args, visits=visits, stream=stream)
-    k_ms = cuda_ms(lambda: sweep.sweep(*args, stream=stream), reps=10)
-    p_ms = cuda_ms(lambda: sweep.sweep_reference(*args), reps=twin_reps)
-    swept, listed = int(visits.sum()), int(counts.sum())
-    pairs = swept * pack.chunk_size * 1024
-    op_ms = pairs * PAIR_INSTRUCTIONS / FP32_INSTR_PER_S * 1e3
-    nbytes = sum(x.numel() * x.element_size() for x in args[:7]) + ro32.shape[0] * 8
+            float(cfg.det_epsilon), float(cfg.smallest_dist), any_mode)
+    boxes = dict(lo=pack.lo, hi=pack.hi)
+    tested, ungated = (torch.zeros((counts.shape[0], sweep.WARPS), dtype=torch.int32,
+                                   device=ro.device) for _ in range(2))
+    sweep.sweep(*args, tested=tested, stream=stream, **boxes)
+    sweep.sweep(*args, tested=ungated, stream=stream)
+    k_ms = cuda_ms(lambda: sweep.sweep(*args, stream=stream, **boxes), reps=10)
+    off_ms = cuda_ms(lambda: sweep.sweep(*args, stream=stream), reps=10)
+    p_ms = (cuda_ms(lambda: sweep.sweep_reference(*args, **boxes), reps=twin_reps)
+            if twin_reps else None)
+    listed = int(counts.sum())
+    pairs = int(tested.sum()) * sweep.WARP_RAYS * pack.chunk_size
+    tile_pairs = int(ungated.amax(dim=1).sum()) * sweep.LANES * pack.chunk_size
+    per_pair = PAIR_INSTRUCTIONS_ANY if any_mode else PAIR_INSTRUCTIONS
+    op_ms = pairs * per_pair / FP32_INSTR_PER_S * 1e3
+    nbytes = (sum(x.numel() * x.element_size() for x in (*args[:7], pack.lo, pack.hi))
+              + ro32.shape[0] * 8)
     byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
     bound_ms, bound_by = max((op_ms, "operations"), (byte_ms, "bytes"))
-    log(f"  {name} 1080p primary closest query: kernel {k_ms:.3f} ms, twin {p_ms:.3f} ms; "
-        f"swept {swept} list positions of {listed} listed ({pairs:.3e} pairs); bound "
-        f"{bound_ms:.3f} ms by {bound_by} (operations {op_ms:.3f} ms, bytes {byte_ms:.3f} ms "
-        f"for {nbytes} bytes): the kernel runs at {bound_ms / k_ms:.3f} of the bound")
+    twin = "not timed" if p_ms is None else f"{p_ms:.3f} ms"
+    log(f"  {name} {'any' if any_mode else 'closest'} query, {ro.shape[0]} rays: kernel "
+        f"{k_ms:.3f} ms (gate off {off_ms:.3f} ms), twin {twin}; {listed} positions listed, "
+        f"{int(tested.sum())} warp positions tested ({pairs:.3e} pairs; at tile granularity "
+        f"{tile_pairs:.3e}); bound {bound_ms:.3f} ms by {bound_by} (operations {op_ms:.3f} ms, "
+        f"bytes {byte_ms:.3f} ms for {nbytes} bytes): the kernel runs at "
+        f"{bound_ms / k_ms:.3f} of the bound")
     return dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
 
@@ -323,8 +380,8 @@ def main() -> int:
     ro = torch.as_tensor(rng.uniform(-15, 15, (500, 3)), dtype=torch.float32, device=dev)
     rd = torch.nn.functional.normalize(
         torch.as_tensor(rng.standard_normal((500, 3)), dtype=torch.float32, device=dev), dim=1)
-    kernel_vs_twin("random-137", ro, rd, sweep.build_pack(small, cfg), cfg, None, errs)
-    kernel_vs_twin("random-137", ro, rd, sweep.build_pack(small, cfg), cfg, None, errs_stream,
+    kernel_vs_twin("random-137", ro, rd, sweep.build_pack(small, cfg), cfg, False, errs)
+    kernel_vs_twin("random-137", ro, rd, sweep.build_pack(small, cfg), cfg, False, errs_stream,
                    stream=True)
 
     mesh, cam = scenes.mesh_scene(device=dev)
@@ -335,10 +392,10 @@ def main() -> int:
     check(pack.resident, "mesh_scene takes the resident kernel")
     camera = scenes.make_camera(cam, W, H, device=dev)
     ro, rd, _ = _tiled_rays(camera)
-    kernel_vs_twin("mesh 1080p primary", ro, rd, pack, cfg, None, errs)
-    (ro_r, rd_r), (ro_s, rd_s) = secondary_rays(mesh, pack, cfg, ro, rd)
-    kernel_vs_twin("mesh reflection (exact mask)", ro_r, rd_r, pack, cfg, True, errs)
-    kernel_vs_twin("mesh shadow (exact mask)", ro_s, rd_s, pack, cfg, True, errs)
+    kernel_vs_twin("mesh 1080p primary (interval mask)", ro, rd, pack, cfg, False, errs)
+    mesh_refl, mesh_shad = secondary_rays(mesh, pack, cfg, ro, rd)
+    kernel_vs_twin("mesh reflection (exact mask)", *mesh_refl, pack, cfg, True, errs)
+    kernel_vs_twin("mesh shadow (exact mask)", *mesh_shad, pack, cfg, True, errs)
 
     x8, _ = scenes.duplicated_mesh_scene(8, device=dev)
     x8 = accel.with_chunks(x8, cfg)
@@ -348,17 +405,19 @@ def main() -> int:
         f"{sweep.super_bounds(pack8.lo, pack8.hi)[0].shape[0]} super-chunks")
     check(not pack8.resident and x8.n_triangles >= sweep.EXACT_MASK_MIN_TRIS,
           "the x8 scene takes the streaming kernel and the big-scene masks")
-    kernel_vs_twin("x8 1080p primary (exact mask + super gate)", ro, rd, pack8, cfg, None,
+    kernel_vs_twin("x8 1080p primary (exact mask + super gate)", ro, rd, pack8, cfg, True,
                    errs_stream, stream=True)
-    (ro_r, rd_r), (ro_s, rd_s) = secondary_rays(x8, pack8, cfg, ro, rd)
-    kernel_vs_twin("x8 reflection", ro_r, rd_r, pack8, cfg, None, errs_stream, stream=True)
-    kernel_vs_twin("x8 shadow", ro_s, rd_s, pack8, cfg, None, errs_stream, stream=True)
-    del ro_r, rd_r, ro_s, rd_s
+    x8_refl, x8_shad = secondary_rays(x8, pack8, cfg, ro, rd)
+    kernel_vs_twin("x8 reflection (exact mask)", *x8_refl, pack8, cfg, True, errs_stream,
+                   stream=True)
+    kernel_vs_twin("x8 shadow (exact mask)", *x8_shad, pack8, cfg, True, errs_stream, stream=True)
 
     phase("4 main paths")
-    _, _, launches, k2 = main_path("mesh_scene", mesh, camera, cfg)
+    log(f"  list policy for CUDA tensors: "
+        f"{'interval lists at every width' if sweep.INTERVAL_LISTS_ON_CUDA else 'as on the CPU'}")
+    img_m, n_m, launches, k2 = main_path("mesh_scene", mesh, camera, cfg)
     check(launches > 0 and k2 == 0, "mesh_scene launched the resident kernel only")
-    _, _, k1, stream_launches = main_path("duplicated_mesh_scene(8)", x8, camera, cfg)
+    img_8, n_8, k1, stream_launches = main_path("duplicated_mesh_scene(8)", x8, camera, cfg)
     check(stream_launches > 0 and k1 == 0, "the x8 scene launched the streaming kernel only")
 
     glass, _ = scenes.glass_mesh_scene(device=dev)
@@ -369,7 +428,18 @@ def main() -> int:
     img_g2, n_g2 = render_with_stats(glass, camera, cfg)
     check(n_g == n_g2 and torch.equal(img_g, img_g2),
           "glass_mesh_scene renders twice bit-identically")
-    del img_g, img_g2
+    del img_g2
+
+    for name, scene, img_b, n_b in (("mesh_scene", mesh, img_m, n_m),
+                                    ("duplicated_mesh_scene(8)", x8, img_8, n_8),
+                                    ("glass_mesh_scene", glass, img_g, n_g)):
+        with list_policy(not sweep.INTERVAL_LISTS_ON_CUDA):
+            img_a, n_a = render_with_stats(scene, camera, cfg)
+        over = int(((img_a - img_b).abs().amax(-1) > IMAGE_TOL).sum())
+        log(f"  {name}: the other list policy gives {over} pixels > {IMAGE_TOL}, rays {n_a} vs "
+            f"{n_b}")
+        check(over == 0 and n_a == n_b, f"{name}: both list policies render the same image")
+    del img_a, img_b, img_m, img_8, img_g
 
     want = np.load(GOLDEN)["image"]
     cfg128 = RenderConfig(max_depth=DEPTH128, accel="sweep", chunk_size=32)
@@ -416,8 +486,18 @@ def main() -> int:
                    scenes.make_camera(dict(cam, position=position), W, H, device=dev), reps=3)
     frame_time("glass_mesh_scene", glass, camera, reps=3)
     del glass
-    k1_row = query_times("mesh_scene, resident kernel,", ro, rd, pack, cfg, False, twin_reps=2)
-    k2_row = query_times("x8, streaming kernel,", ro, rd, pack8, cfg, True, twin_reps=1)
+    k1_row = query_times("mesh_scene, resident kernel, 1080p primary", ro, rd, pack, cfg, False,
+                         twin_reps=2)
+    k2_row = query_times("x8, streaming kernel, 1080p primary", ro, rd, pack8, cfg, True,
+                         twin_reps=1)
+    for label, pk, stream, refl, shad in (("mesh_scene, resident kernel,", pack, False,
+                                           mesh_refl, mesh_shad),
+                                          ("x8, streaming kernel,", pack8, True, x8_refl,
+                                           x8_shad)):
+        query_times(f"{label} reflection wavefront", *refl, pk, cfg, stream, twin_reps=0)
+        query_times(f"{label} shadow wavefront", *shad, pk, cfg, stream, twin_reps=0,
+                    any_mode=True)
+    del mesh_refl, mesh_shad, x8_refl, x8_shad
     frame_time("duplicated_mesh_scene(8)", x8, camera, reps=3)
     del x8
     for copies in (4, 16):
@@ -430,7 +510,7 @@ def main() -> int:
         ro32, rd32, chunk_list, entry, counts = sweep.sweep_inputs(ro, rd, pk, cfg)
         args = (ro32, rd32, pk.consts, pk.meta, chunk_list, counts, entry,
                 float(cfg.det_epsilon), float(cfg.smallest_dist), False)
-        ms = [cuda_ms(lambda s=s: sweep.sweep(*args, stream=s), reps=10)
+        ms = [cuda_ms(lambda s=s: sweep.sweep(*args, stream=s, lo=pk.lo, hi=pk.hi), reps=10)
               for s in (False, True, True, False)]
         log(f"  {name} ({pk.n_chunks} chunks of {pk.chunk_size}) 1080p primary closest query: "
             f"resident {ms[0]:.3f} and {ms[3]:.3f} ms, streaming {ms[1]:.3f} and {ms[2]:.3f} ms")

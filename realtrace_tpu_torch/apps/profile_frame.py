@@ -15,6 +15,11 @@ one JSON object per line:
 * ``profile``: one frame under ``torch.profiler``: kernel launches, the time
   the card was busy, and its idle share of the frame.
 
+``--lists`` picks the chunk-list policy for the card: ``interval`` (interval
+lists at every query width; the kernels' warps prune them), ``exact`` (the
+CPU's policy: exact masks for narrow queries and big scenes) or ``default``
+(what ``ops/sweep.py::INTERVAL_LISTS_ON_CUDA`` says).
+
 Every line carries the card's name and power limit. It needs a card.
 """
 from __future__ import annotations
@@ -83,7 +88,10 @@ def main(argv=None) -> int:
     p.add_argument("--height", type=int, default=1080)
     p.add_argument("--depth", type=int, default=3)
     p.add_argument("--frames", type=int, default=5)
+    p.add_argument("--lists", choices=["default", "interval", "exact"], default="default")
     args = p.parse_args(argv)
+    if args.lists != "default":
+        sweep.INTERVAL_LISTS_ON_CUDA = args.lists == "interval"
 
     dev = torch.device("cuda", 0)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -99,7 +107,8 @@ def main(argv=None) -> int:
     camera = scenes.make_camera(cam, args.width, args.height, device=dev)
     tag = dict(scene=args.scene, copies=args.copies, triangles=scene.n_triangles,
                position=list(cam["position"]), size=[args.width, args.height],
-               depth=args.depth, card=card)
+               depth=args.depth, card=card,
+               lists="interval" if sweep.INTERVAL_LISTS_ON_CUDA else "exact")
 
     def frame():
         t0 = time.perf_counter()

@@ -1,29 +1,70 @@
 // Arithmetic shared by the two chunk-sweep kernels (sweep.cu, the resident
-// form, and sweep_stream.cu, the streaming form): the per-tile ray state, the
-// exact FP32 (ray, triangle) test over one staged chunk, and the fold of a
-// chunk into the per-ray best with the block's vote on going on.
+// form, and sweep_stream.cu, the streaming form): a warp's ray state, the
+// votes that decide which list positions a warp tests (exit and chunk gate),
+// and the exact FP32 (ray, triangle) test over one chunk with its fold into
+// the per-ray best.
 //
 // Both kernels compute the function that the plain PyTorch twin
 // realtrace_tpu_torch/ops/sweep.py::sweep_reference defines; they differ only
-// in how a chunk's constants reach shared memory. Keeping the arithmetic here
+// in how a chunk's constants reach the arithmetic. Keeping the arithmetic here
 // keeps its rounding order the same in both.
+//
+// The unit of control is the warp. Warp w of a 1024-ray tile owns rays
+// [128*w, 128*w + 128) of the tile, lane l the rays 128*w + l + 32*k, k = 0..3
+// (so loads coalesce). At each list position of its tile, in list order, a warp
+//   1. leaves the list if none of its live lanes still wants a chunk: closest
+//      mode wants one while the lane's best t is not below the position's
+//      entry bound (the list is sorted by entry, so nothing later can be
+//      closer), any mode while the lane is unoccluded;
+//   2. skips the position unless some live (any mode: and unoccluded) lane's
+//      ray enters the chunk's box: the slab test of ops/sweep.py::_slab_hits,
+//      same rounding, same pad, with the exit distance cut at the lane's best
+//      t in closest mode (a chunk entered behind the best hit holds nothing
+//      closer);
+//   3. else runs the pair loop for all its lanes.
+// Parked lanes (origin x == 1e8) take part in the pair loop, in no vote.
 //
 // Rounding: every product and sum is an explicitly rounded __fmul_rn /
 // __fadd_rn / __fsub_rn (no FMA contraction), evaluated in the twin's order,
-// so the kernels reproduce the twin bit for bit; a contracted FMA would flip
-// rays that pass within an ulp of a triangle edge.
+// so the kernels reproduce the twin bit for bit, results and verdicts; a
+// contracted FMA would flip rays that pass within an ulp of a triangle edge.
+//
+// Build-time switches (defaults are what the measurements on the H100 chose;
+// realtrace_tpu_torch/apps/sweep_variants.py builds and times the others):
+//   RT_SIGN_PRETEST   closest mode: skip t, the division and the divided
+//                     tests for a triangle no ray of the warp can pass, by the
+//                     signs of the numerators (1) and also their sum (2).
+//                     Off (0): the votes cost more than the divisions they
+//                     save (PERF.md).
+//   RT_TRI_UNROLL     triangles of a chunk the pair loop takes at a time: 2
+//                     measured 7-8% faster than 1; 4 gains 1-5% more in closest
+//                     mode and loses 7-13% in any mode.
 #pragma once
 
 #include <cuda_runtime.h>
 
+#ifndef RT_SIGN_PRETEST
+#define RT_SIGN_PRETEST 0
+#endif
+#ifndef RT_TRI_UNROLL
+#define RT_TRI_UNROLL 2
+#endif
+#define RT_PRAGMA(x) _Pragma(#x)
+#define RT_UNROLL(n) RT_PRAGMA(unroll n)
+
 namespace rt {
 
 constexpr int kTile = 1024;
-constexpr int kThreads = 256;
-constexpr int kRaysPerThread = kTile / kThreads;
+constexpr int kWarpsPerTile = 8;
+constexpr int kRaysPerLane = 4;             // kTile / (kWarpsPerTile * 32)
+constexpr int kWarpRays = 32 * kRaysPerLane;
 constexpr int kCoef = 16;
 constexpr float kBig = 1e30f;
 constexpr float kPark = 1e8f;
+constexpr unsigned kFullWarp = 0xffffffffu;
+// the slab test's pad, as ops/sweep.py writes it: tf * (1 + 1e-6) + 1e-6 >= tn
+constexpr float kPadMul = 1.000001f;
+constexpr float kPadAdd = 1e-6f;
 
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 
@@ -38,27 +79,36 @@ __device__ __forceinline__ float cross1(float a, float b, float c, float d) {
   return __fsub_rn(mul(a, b), mul(c, d));
 }
 
-// One thread's rays of its tile (ray r of the tile = threadIdx.x + k*kThreads,
-// so loads coalesce), with q = rd x ro and the running best hit.
+// 1/d as ops/sweep.py::_inv_dir: kBig where the component is 0
+__device__ __forceinline__ float inv_dir(float d) { return d != 0.0f ? 1.0f / d : kBig; }
+
+// One lane's rays, with q = rd x ro, 1/rd and the running best hit.
 struct Rays {
-  float ox[kRaysPerThread], oy[kRaysPerThread], oz[kRaysPerThread];
-  float dx[kRaysPerThread], dy[kRaysPerThread], dz[kRaysPerThread];
-  float qx[kRaysPerThread], qy[kRaysPerThread], qz[kRaysPerThread];
-  float best_t[kRaysPerThread];
-  int best_i[kRaysPerThread];
-  bool parked[kRaysPerThread];
+  float ox[kRaysPerLane], oy[kRaysPerLane], oz[kRaysPerLane];
+  float dx[kRaysPerLane], dy[kRaysPerLane], dz[kRaysPerLane];
+  float qx[kRaysPerLane], qy[kRaysPerLane], qz[kRaysPerLane];
+  float ix[kRaysPerLane], iy[kRaysPerLane], iz[kRaysPerLane];
+  float best_t[kRaysPerLane];
+  int best_i[kRaysPerLane];
+  bool parked[kRaysPerLane];
 };
 
+__device__ __forceinline__ size_t ray_index(int tile, int warp, int lane, int k) {
+  return static_cast<size_t>(tile) * kTile + warp * kWarpRays + k * 32 + lane;
+}
+
 __device__ __forceinline__ void load_rays(Rays& r, const float* __restrict__ ro,
-                                          const float* __restrict__ rd, int tile) {
+                                          const float* __restrict__ rd, int tile, int warp,
+                                          int lane) {
 #pragma unroll
-  for (int k = 0; k < kRaysPerThread; ++k) {
-    const size_t i = static_cast<size_t>(tile) * kTile + k * kThreads + threadIdx.x;
+  for (int k = 0; k < kRaysPerLane; ++k) {
+    const size_t i = ray_index(tile, warp, lane, k);
     r.ox[k] = ro[3 * i]; r.oy[k] = ro[3 * i + 1]; r.oz[k] = ro[3 * i + 2];
     r.dx[k] = rd[3 * i]; r.dy[k] = rd[3 * i + 1]; r.dz[k] = rd[3 * i + 2];
     r.qx[k] = cross1(r.dy[k], r.oz[k], r.dz[k], r.oy[k]);
     r.qy[k] = cross1(r.dz[k], r.ox[k], r.dx[k], r.oz[k]);
     r.qz[k] = cross1(r.dx[k], r.oy[k], r.dy[k], r.ox[k]);
+    r.ix[k] = inv_dir(r.dx[k]); r.iy[k] = inv_dir(r.dy[k]); r.iz[k] = inv_dir(r.dz[k]);
     r.parked[k] = r.ox[k] == kPark;
     r.best_t[k] = kBig;
     r.best_i[k] = -1;
@@ -66,90 +116,54 @@ __device__ __forceinline__ void load_rays(Rays& r, const float* __restrict__ ro,
 }
 
 __device__ __forceinline__ void store_rays(const Rays& r, float* __restrict__ out_t,
-                                           int* __restrict__ out_i, int tile) {
+                                           int* __restrict__ out_i, int tile, int warp,
+                                           int lane) {
 #pragma unroll
-  for (int k = 0; k < kRaysPerThread; ++k) {
-    const size_t i = static_cast<size_t>(tile) * kTile + k * kThreads + threadIdx.x;
+  for (int k = 0; k < kRaysPerLane; ++k) {
+    const size_t i = ray_index(tile, warp, lane, k);
     out_t[i] = r.best_t[k];
     out_i[i] = r.best_i[k];
   }
 }
 
-// Test this thread's rays against the c triangles staged at s_tri (16 floats
-// each: n, d, c1, e2, c2, e1, relative to the chunk centroid g), fold the
-// chunk (id m) into the per-ray best, and return this thread's vote on going
-// on to the next list position, whose entry bound is next_entry:
-//   det = n.rd   tnum = d - n.ro'   bnum = c1.rd - e2.q'   gnum = c2.rd + e1.q'
-// with ro' = ro - g, q' = q - rd x g. Closest mode applies the divided
-// validity tests, keeps the first minimum within the chunk and replaces the
-// best hit only when strictly closer; it votes to go on while any live lane's
-// best t is not below next_entry. Any mode applies the division-free sign
-// tests, records the first occluding chunk, and votes to go on while any live
-// lane is unoccluded. Parked lanes take part in the tests, not in the votes.
+// Vote 1: does any of this lane's live rays still want a chunk whose entry
+// bound is `entry`?
 template <bool kAny>
-__device__ __forceinline__ int sweep_chunk(Rays& r, const float* __restrict__ s_tri, int c,
-                                           int m, float gx, float gy, float gz,
-                                           float next_entry, float det_eps, float det_eps2,
-                                           float t_min) {
-  float rx[kRaysPerThread], ry[kRaysPerThread], rz[kRaysPerThread];
-  float px[kRaysPerThread], py[kRaysPerThread], pz[kRaysPerThread];
-  float cmin[kRaysPerThread];
-  int carg[kRaysPerThread];
-  bool occ[kRaysPerThread];
+__device__ __forceinline__ bool lane_wants(const Rays& r, float entry) {
+  bool want = false;
 #pragma unroll
-  for (int k = 0; k < kRaysPerThread; ++k) {
-    rx[k] = r.ox[k] - gx; ry[k] = r.oy[k] - gy; rz[k] = r.oz[k] - gz;
-    px[k] = r.qx[k] - cross1(r.dy[k], gz, r.dz[k], gy);
-    py[k] = r.qy[k] - cross1(r.dz[k], gx, r.dx[k], gz);
-    pz[k] = r.qz[k] - cross1(r.dx[k], gy, r.dy[k], gx);
-    cmin[k] = kBig;
-    carg[k] = 0;
-    occ[k] = false;
-  }
+  for (int k = 0; k < kRaysPerLane; ++k)
+    want |= !r.parked[k] && (kAny ? r.best_i[k] < 0 : r.best_t[k] >= entry);
+  return want;
+}
 
-  for (int i = 0; i < c; ++i) {
-    const float* w = s_tri + i * kCoef;
-    const float nx = w[0], ny = w[1], nz = w[2], d = w[3];
-    const float c1x = w[4], c1y = w[5], c1z = w[6];
-    const float e2x = w[7], e2y = w[8], e2z = w[9];
-    const float c2x = w[10], c2y = w[11], c2z = w[12];
-    const float e1x = w[13], e1y = w[14], e1z = w[15];
-#pragma unroll
-    for (int k = 0; k < kRaysPerThread; ++k) {
-      const float det = dot3(nx, ny, nz, r.dx[k], r.dy[k], r.dz[k]);
-      const float tnum = d - dot3(nx, ny, nz, rx[k], ry[k], rz[k]);
-      const float bnum = dot3(c1x, c1y, c1z, r.dx[k], r.dy[k], r.dz[k])
-                         - dot3(e2x, e2y, e2z, px[k], py[k], pz[k]);
-      const float gnum = dot3(c2x, c2y, c2z, r.dx[k], r.dy[k], r.dz[k])
-                         + dot3(e1x, e1y, e1z, px[k], py[k], pz[k]);
-      if (kAny) {
-        const float det2 = mul(det, det);
-        const float m1 = mul(bnum, det), m2 = mul(gnum, det);
-        occ[k] |= (det2 >= det_eps2) && (m1 > 0.0f) && (m2 > 0.0f) && (m1 + m2 < det2)
-                  && (mul(tnum, det) > mul(t_min, det2));
-      } else {
-        const bool ok = fabsf(det) >= det_eps;
-        const float invd = 1.0f / (ok ? det : 1.0f);
-        const float t = mul(tnum, invd), beta = mul(bnum, invd), gamma = mul(gnum, invd);
-        const bool valid = ok && (beta > 0.0f) && (gamma > 0.0f) && (beta + gamma < 1.0f)
-                           && (t > t_min);
-        if (valid && t < cmin[k]) { cmin[k] = t; carg[k] = i; }
-      }
-    }
-  }
+// One axis of the slab test; a NaN (0 * inf) makes torch's minimum / maximum
+// return NaN and the final comparison false, fminf / fmaxf would drop it.
+__device__ __forceinline__ void slab_axis(float lo, float hi, float o, float inv, float& tn,
+                                          float& tf, bool& nan) {
+  const float ta = mul(__fsub_rn(lo, o), inv), tb = mul(__fsub_rn(hi, o), inv);
+  nan |= (ta != ta) || (tb != tb);
+  tn = fmaxf(tn, fminf(ta, tb));
+  tf = fminf(tf, fmaxf(ta, tb));
+}
 
-  int go = 0;
+// Vote 2: does any of this lane's live (any mode: unoccluded) rays enter the
+// box [lo, hi]? Closest mode cuts the exit distance at the ray's best t.
+template <bool kAny>
+__device__ __forceinline__ bool lane_enters(const Rays& r, const float* lo, const float* hi) {
+  bool enters = false;
 #pragma unroll
-  for (int k = 0; k < kRaysPerThread; ++k) {
-    if (kAny) {
-      if (occ[k] && r.best_i[k] < 0) r.best_i[k] = m * c;
-      go |= !r.parked[k] && r.best_i[k] < 0;
-    } else {
-      if (cmin[k] < r.best_t[k]) { r.best_t[k] = cmin[k]; r.best_i[k] = m * c + carg[k]; }
-      go |= (r.parked[k] ? 0.0f : r.best_t[k]) >= next_entry;
-    }
+  for (int k = 0; k < kRaysPerLane; ++k) {
+    float tn = 0.0f, tf = kBig;
+    bool nan = false;
+    slab_axis(lo[0], hi[0], r.ox[k], r.ix[k], tn, tf, nan);
+    slab_axis(lo[1], hi[1], r.oy[k], r.iy[k], tn, tf, nan);
+    slab_axis(lo[2], hi[2], r.oz[k], r.iz[k], tn, tf, nan);
+    if (!kAny) tf = fminf(tf, r.best_t[k]);
+    const bool pass = !nan && __fadd_rn(mul(tf, kPadMul), kPadAdd) >= tn;
+    enters |= pass && !r.parked[k] && (!kAny || r.best_i[k] < 0);
   }
-  return go;
+  return enters;
 }
 
 // The thresholds as the kernels take them: rounded to float as the twin's
@@ -160,5 +174,143 @@ struct Thresholds {
       : det_eps(static_cast<float>(eps)), det_eps2(static_cast<float>(eps * eps)),
         t_min(static_cast<float>(tmin)) {}
 };
+
+// Test this lane's rays against the c triangles at tri (four float4 each:
+// n d | c1 e2.x | e2.yz c2.xy | c2.z e1, relative to the chunk centroid g) and
+// fold the chunk (id m) into the per-ray best:
+//   det = n.rd   tnum = d - n.ro'   bnum = c1.rd - e2.q'   gnum = c2.rd + e1.q'
+// with ro' = ro - g, q' = q - rd x g. Closest mode applies the divided
+// validity tests, keeps the first minimum within the chunk and replaces the
+// best hit only when strictly closer. Any mode applies the division-free sign
+// tests and records the first occluding chunk. All 32 lanes of the warp call
+// this together.
+//
+// kGlobal: tri is global memory; every lane reads the same 16 bytes four times
+// a triangle through the read-only path (one transaction a warp each), one
+// triangle ahead of the arithmetic. Otherwise tri is shared memory, read as
+// warp-wide broadcasts.
+template <bool kAny, bool kGlobal>
+__device__ __forceinline__ void sweep_chunk(Rays& r, const float4* __restrict__ tri, int c,
+                                            int m, float gx, float gy, float gz,
+                                            const Thresholds& th) {
+  float rx[kRaysPerLane], ry[kRaysPerLane], rz[kRaysPerLane];
+  float px[kRaysPerLane], py[kRaysPerLane], pz[kRaysPerLane];
+  float cmin[kRaysPerLane];
+  int carg[kRaysPerLane];
+  bool occ[kRaysPerLane];
+#pragma unroll
+  for (int k = 0; k < kRaysPerLane; ++k) {
+    rx[k] = r.ox[k] - gx; ry[k] = r.oy[k] - gy; rz[k] = r.oz[k] - gz;
+    px[k] = r.qx[k] - cross1(r.dy[k], gz, r.dz[k], gy);
+    py[k] = r.qy[k] - cross1(r.dz[k], gx, r.dx[k], gz);
+    pz[k] = r.qz[k] - cross1(r.dx[k], gy, r.dy[k], gx);
+    cmin[k] = kBig;
+    carg[k] = 0;
+    occ[k] = false;
+  }
+
+  float4 w0, w1, w2, w3;
+  if (kGlobal) { w0 = __ldg(tri); w1 = __ldg(tri + 1); w2 = __ldg(tri + 2); w3 = __ldg(tri + 3); }
+  RT_UNROLL(RT_TRI_UNROLL)
+  for (int i = 0; i < c; ++i) {
+    float4 a0, a1, a2, a3;
+    if (kGlobal) {
+      a0 = w0; a1 = w1; a2 = w2; a3 = w3;
+      const float4* nxt = tri + 4 * min(i + 1, c - 1);
+      w0 = __ldg(nxt); w1 = __ldg(nxt + 1); w2 = __ldg(nxt + 2); w3 = __ldg(nxt + 3);
+    } else {
+      const float4* cur = tri + 4 * i;
+      a0 = cur[0]; a1 = cur[1]; a2 = cur[2]; a3 = cur[3];
+    }
+    const float nx = a0.x, ny = a0.y, nz = a0.z, d = a0.w;
+    const float c1x = a1.x, c1y = a1.y, c1z = a1.z;
+    const float e2x = a1.w, e2y = a2.x, e2z = a2.y;
+    const float c2x = a2.z, c2y = a2.w, c2z = a3.x;
+    const float e1x = a3.y, e1y = a3.z, e1z = a3.w;
+    if (kAny) {
+#pragma unroll
+      for (int k = 0; k < kRaysPerLane; ++k) {
+        const float det = dot3(nx, ny, nz, r.dx[k], r.dy[k], r.dz[k]);
+        const float tnum = d - dot3(nx, ny, nz, rx[k], ry[k], rz[k]);
+        const float bnum = dot3(c1x, c1y, c1z, r.dx[k], r.dy[k], r.dz[k])
+                           - dot3(e2x, e2y, e2z, px[k], py[k], pz[k]);
+        const float gnum = dot3(c2x, c2y, c2z, r.dx[k], r.dy[k], r.dz[k])
+                           + dot3(e1x, e1y, e1z, px[k], py[k], pz[k]);
+        const float det2 = mul(det, det);
+        const float m1 = mul(bnum, det), m2 = mul(gnum, det);
+        occ[k] |= (det2 >= th.det_eps2) && (m1 > 0.0f) && (m2 > 0.0f) && (m1 + m2 < det2)
+                  && (mul(tnum, det) > mul(th.t_min, det2));
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < kRaysPerLane; ++k) {
+        const float det = dot3(nx, ny, nz, r.dx[k], r.dy[k], r.dz[k]);
+        const float bnum = dot3(c1x, c1y, c1z, r.dx[k], r.dy[k], r.dz[k])
+                           - dot3(e2x, e2y, e2z, px[k], py[k], pz[k]);
+        const float gnum = dot3(c2x, c2y, c2z, r.dx[k], r.dy[k], r.dz[k])
+                           + dot3(e1x, e1y, e1z, px[k], py[k], pz[k]);
+        const bool ok = fabsf(det) >= th.det_eps;
+#if RT_SIGN_PRETEST
+        // Necessary conditions of the divided tests, whatever the rounding of
+        // the division: beta = bnum / det > 0 and gamma = gnum / det > 0 need
+        // numerators of det's sign; beta + gamma < 1 needs |bnum| + |gnum|
+        // below |det| up to the three roundings of the divided form (3 * 2^-24,
+        // against the pad's 9.5e-7). A ray that fails them cannot be valid,
+        // and a triangle that no ray of the warp passes skips t, the division
+        // and the divided tests.
+        bool pre = ok && (det > 0.0f ? (bnum > 0.0f && gnum > 0.0f)
+                                     : (bnum < 0.0f && gnum < 0.0f));
+#if RT_SIGN_PRETEST > 1
+        pre = pre && fabsf(bnum) + fabsf(gnum) <= mul(fabsf(det), kPadMul);
+#endif
+        if (!__any_sync(kFullWarp, pre)) continue;
+#else
+        const bool pre = true;
+#endif
+        const float tnum = d - dot3(nx, ny, nz, rx[k], ry[k], rz[k]);
+        const float invd = 1.0f / (ok ? det : 1.0f);
+        const float t = mul(tnum, invd), beta = mul(bnum, invd), gamma = mul(gnum, invd);
+        const bool valid = pre && ok && (beta > 0.0f) && (gamma > 0.0f)
+                           && (beta + gamma < 1.0f) && (t > th.t_min);
+        if (valid && t < cmin[k]) { cmin[k] = t; carg[k] = i; }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int k = 0; k < kRaysPerLane; ++k) {
+    if (kAny) {
+      if (occ[k] && r.best_i[k] < 0) r.best_i[k] = m * c;
+    } else {
+      if (cmin[k] < r.best_t[k]) { r.best_t[k] = cmin[k]; r.best_i[k] = m * c + carg[k]; }
+    }
+  }
+}
+
+// A chunk's box (null pointers: no gate, every position is entered) and
+// centroid, read by every lane of the warp from the same addresses.
+struct ChunkBox {
+  float lo[3], hi[3];
+};
+
+__device__ __forceinline__ ChunkBox load_box(const float* __restrict__ lo,
+                                             const float* __restrict__ hi, int m) {
+  ChunkBox b;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) { b.lo[a] = __ldg(lo + 3 * m + a); b.hi[a] = __ldg(hi + 3 * m + a); }
+  return b;
+}
+
+// Votes 1 and 2 of one list position for the whole warp. Returns 0 when the
+// warp leaves the list, 1 when it skips the position, 2 when it tests it.
+template <bool kAny>
+__device__ __forceinline__ int warp_verdict(const Rays& r, float entry,
+                                            const float* __restrict__ lo,
+                                            const float* __restrict__ hi, int m) {
+  if (!__any_sync(kFullWarp, lane_wants<kAny>(r, entry))) return 0;
+  if (lo == nullptr) return 2;
+  const ChunkBox b = load_box(lo, hi, m);
+  return __any_sync(kFullWarp, lane_enters<kAny>(r, b.lo, b.hi)) ? 2 : 1;
+}
 
 }  // namespace rt

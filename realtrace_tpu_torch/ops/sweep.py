@@ -18,10 +18,18 @@ with ro' = ro - G, q' = rd x ro' (G the chunk centroid), e1 = A-B, e2 = A-C,
 n = e1 x e2, d = n . (A-G), c1 = (A-G) x e2, c2 = e1 x (A-G).
 
 ``sweep`` launches one of two CUDA kernels on CUDA tensors: the resident form
-(``csrc/sweep.cu``) or, for scenes past ``RESIDENT_LIMIT`` or when asked, the
-streaming form (``csrc/sweep_stream.cu``), which prefetches each listed chunk
-one position ahead. Both compute the same function; on CPU tensors ``sweep``
+(``csrc/sweep.cu``, every warp reads the table where it lies) or, for scenes
+past ``RESIDENT_LIMIT`` or when asked, the streaming form
+(``csrc/sweep_stream.cu``, a block stages the listed chunks in a ring of
+shared memory). Both compute the same function; on CPU tensors ``sweep``
 runs their plain PyTorch twin ``sweep_reference``, which owns the semantics.
+
+The unit of control inside a tile is the warp: 128 consecutive rays of the
+tile. Given the chunk boxes, a warp tests a listed chunk only if one of its
+own live rays enters the chunk's box (the per-ray slab test of the exact
+mask), and leaves the list by its own vote. The results do not depend on
+that gate, nor on whether a tile's list is the interval list or the exact
+one; the work does, and ``tested`` counts it.
 
 Big scenes (``EXACT_MASK_MIN_TRIS`` triangles and up) take the exact chunk
 mask at every query width behind a super-chunk gate: per-ray slab tests
@@ -39,7 +47,9 @@ from realtrace_tpu_torch.core.types import BIG, PARK_DISTANCE, WAVEFRONT_TILE, R
 from realtrace_tpu_torch.ops import cuda_build
 from realtrace_tpu_torch.ops.accel import effective_chunk_size, total_order_key
 
-LANES = WAVEFRONT_TILE   # rays per sweep tile (one thread block)
+LANES = WAVEFRONT_TILE   # rays per sweep tile
+WARP_RAYS = 128          # consecutive rays of a tile that one warp owns (4 a lane)
+WARPS = LANES // WARP_RAYS
 NCOEF = 16               # per-triangle constants: n(3) d c1(3) e2(3) c2(3) e1(3)
 # Blocked per-ray refinement of the exact mask: tiles per block, and the
 # interval-shortlist candidates refined per tile (the tail past the cap is
@@ -65,6 +75,17 @@ EXACT_MASK_MIN_TRIS = 1 << 16
 RESIDENT_LIMIT = 6 * 1024 * 1024
 # bytes of dynamic shared memory one thread block may be given on the H100
 MAX_DYNAMIC_SMEM = 232_448
+# bytes of it the streaming kernel keeps for its barriers and masks
+STREAM_SMEM_RESERVE = 1024
+# warps of one block of the resident kernel (RT_K1_WARPS of csrc/sweep.cu):
+# each stages the chunk it tests in a shared-memory slice of its own
+RESIDENT_BLOCK_WARPS = 4
+# List policy for CUDA tensors: with the chunk gate inside the kernels the
+# exact mask only shortens lists that the warps prune themselves, and on the
+# card it costs more than it saves (PERF.md, section 6), so CUDA queries
+# take the interval list at every width. CPU queries keep the policy of the
+# JAX package: the twin walks every listed position for all tiles.
+INTERVAL_LISTS_ON_CUDA = True
 # bytes one (tiles, C, LANES) f32 temporary of the twin may take: sets how many
 # tiles the twin walks at once
 REFERENCE_BLOCK_BYTES = 64 << 20
@@ -230,14 +251,27 @@ def _slab_hits(ro_t: Tensor, inv_t: Tensor, lo_b: Tensor, hi_b: Tensor):
     """Per-ray slab test of (bt, LANES, 3) rays against (bt or 1, K, 3) boxes:
     (hit, tn), each (bt, LANES, K); tn is the entry distance clamped at 0. A
     small relative pad keeps f32 rounding from dropping a grazing box."""
-    tn = ro_t.new_zeros((ro_t.shape[0], LANES, lo_b.shape[1]))
-    tf = torch.full_like(tn, BIG)
+    tn, tf = _slab_interval(ro_t[:, :, None], inv_t[:, :, None], lo_b[:, None], hi_b[:, None])
+    return _slab_pass(tn, tf), tn
+
+
+def _slab_interval(ro, inv, lo, hi):
+    """(tn, tf): entry (clamped at 0) and exit distance of rays ``ro`` with
+    inverse directions ``inv`` through the boxes [lo, hi]; all (..., 3),
+    broadcast against each other."""
+    tn = tf = None
     for ax in range(3):
-        t_a = (lo_b[:, None, :, ax] - ro_t[:, :, None, ax]) * inv_t[:, :, None, ax]
-        t_b = (hi_b[:, None, :, ax] - ro_t[:, :, None, ax]) * inv_t[:, :, None, ax]
-        tn = torch.maximum(tn, torch.minimum(t_a, t_b))
-        tf = torch.minimum(tf, torch.maximum(t_a, t_b))
-    return tf * (1.0 + 1e-6) + 1e-6 >= tn, tn
+        t_a = (lo[..., ax] - ro[..., ax]) * inv[..., ax]
+        t_b = (hi[..., ax] - ro[..., ax]) * inv[..., ax]
+        near, far = torch.minimum(t_a, t_b), torch.maximum(t_a, t_b)
+        tn = torch.clamp(near, min=0.0) if tn is None else torch.maximum(tn, near)
+        tf = torch.clamp(far, max=BIG) if tf is None else torch.minimum(tf, far)
+    return tn, tf
+
+
+def _slab_pass(tn, tf):
+    """The slab verdict with its pad (the kernels repeat it step by step)."""
+    return tf * (1.0 + 1e-6) + 1e-6 >= tn
 
 
 def super_tile_mask(ro: Tensor, rd: Tensor, lo_s: Tensor, hi_s: Tensor, nt: int) -> Tensor:
@@ -308,8 +342,9 @@ def chunk_mask_exact(ro: Tensor, rd: Tensor, lo: Tensor, hi: Tensor, nt: int,
 
 def sweep_reference(ro: Tensor, rd: Tensor, consts: Tensor, meta: Tensor, chunk_list: Tensor,
                     counts: Tensor, entry: Tensor, det_eps: float, t_min: float,
-                    any_mode: bool = False, visits: Tensor | None = None,
-                    block_tiles: int | None = None):
+                    any_mode: bool = False, tested: Tensor | None = None,
+                    block_tiles: int | None = None, lo: Tensor | None = None,
+                    hi: Tensor | None = None):
     """Plain PyTorch sweep; defines what BOTH kernels compute (the resident
     and the streaming kernel are the same function and share this twin).
 
@@ -324,11 +359,26 @@ def sweep_reference(ro: Tensor, rd: Tensor, consts: Tensor, meta: Tensor, chunk_
     * any mode: the division-free sign tests; idx = chunk * C of the FIRST
       occluding chunk in list order, t stays BIG.
 
-    The kernels' early exits are skipped: they never change the result.
-    ``visits`` ((nt,) int32, optional) receives the list positions a kernel
-    sweeps per tile before its exit vote stops it: closest mode stops once
-    ``entry`` of the next position exceeds every live lane's best t, any mode
-    once every live lane is occluded.
+    Which positions update which rays is decided per warp: warp w of a tile
+    owns its rays ``[WARP_RAYS * w, WARP_RAYS * (w + 1))``. At position j, in
+    list order, a warp
+
+    1. leaves the list for good if none of its live lanes wants a chunk any
+       more: closest mode wants one while the lane's best t is not below
+       ``entry[:, j]`` (lists are sorted by entry), any mode while the lane
+       is unoccluded;
+    2. skips the position unless, given the chunk boxes ``lo`` and ``hi``
+       ((M, 3) each), some live (any mode: and unoccluded) lane's ray enters
+       the chunk's box: the slab test and pad of ``_slab_hits``, with the
+       exit distance cut at the lane's best t in closest mode. Without boxes
+       every position is entered;
+    3. else updates all its lanes from the chunk.
+
+    Parked lanes (origin x == ``PARK_DISTANCE``) vote in neither. Neither
+    vote changes the result of a live lane: the chunks they pass over hold
+    nothing closer. ``tested`` ((nt, WARPS) int32, optional) receives, per
+    warp, the positions it reached step 3 at: the pair work the function
+    requires, ``tested.sum() * WARP_RAYS * C`` (ray, triangle) pairs.
 
     Tiles are independent, so they go through in blocks of ``block_tiles``
     (default: as many as keep one (tiles, C, LANES) temporary within
@@ -336,21 +386,28 @@ def sweep_reference(ro: Tensor, rd: Tensor, consts: Tensor, meta: Tensor, chunk_
     """
     nt = counts.shape[0]
     c = consts.shape[1]
+    if (lo is None) != (hi is None):
+        raise ValueError("sweep: the chunk boxes lo and hi come together")
     if block_tiles is None:
         block_tiles = max(1, REFERENCE_BLOCK_BYTES // (4 * c * LANES))
     ro_t, rd_t = ro.reshape(nt, LANES, 3), rd.reshape(nt, LANES, 3)
     out = [_sweep_reference_tiles(ro_t[a:a + block_tiles], rd_t[a:a + block_tiles], consts, meta,
                                   chunk_list[a:a + block_tiles], counts[a:a + block_tiles],
                                   entry[a:a + block_tiles], det_eps, t_min, any_mode,
-                                  None if visits is None else visits[a:a + block_tiles])
+                                  None if tested is None else tested[a:a + block_tiles], lo, hi)
            for a in range(0, nt, block_tiles)]
     if not out:
         return ro.new_zeros(0), torch.zeros(0, dtype=torch.int32, device=ro.device)
     return torch.cat([t for t, _ in out]).reshape(-1), torch.cat([i for _, i in out]).reshape(-1)
 
 
+def _any_of_warp(x: Tensor) -> Tensor:
+    """(nt, LANES) bool -> (nt, WARPS): any over each warp's rays."""
+    return x.reshape(-1, WARPS, WARP_RAYS).any(dim=2)
+
+
 def _sweep_reference_tiles(ro_t, rd_t, consts, meta, chunk_list, counts, entry, det_eps, t_min,
-                           any_mode, visits):
+                           any_mode, tested, lo, hi):
     """``sweep_reference`` on one block of tiles: (best_t, best_i), each
     (nt, LANES)."""
     nt = counts.shape[0]
@@ -362,13 +419,28 @@ def _sweep_reference_tiles(ro_t, rd_t, consts, meta, chunk_list, counts, entry, 
     best_t = torch.full((nt, LANES), BIG, dtype=torch.float32, device=dev)
     best_i = torch.full((nt, LANES), -1, dtype=torch.int32, device=dev)
     n_max = int(counts.max())
-    if visits is not None:
-        visits.copy_(counts)
-        parked = ro_t[..., 0] == PARK_DISTANCE
-        running = torch.ones(nt, dtype=torch.bool, device=dev)
+    live = ro_t[..., 0] != PARK_DISTANCE
+    left = torch.zeros((nt, WARPS), dtype=torch.bool, device=dev)
+    n_tested = torch.zeros((nt, WARPS), dtype=torch.int32, device=dev)
+    inv_t = None if lo is None else _inv_dir(rd_t)
     for j in range(n_max):
-        live_tile = (j < counts)[:, None]
         m = chunk_list[:, j].long()
+        # the warps' votes: leave the list, then enter the chunk's box
+        if any_mode:
+            open_ = live & (best_i < 0)
+            left |= ~_any_of_warp(open_)
+        else:
+            open_ = live
+            left |= ~_any_of_warp(live & (best_t >= entry[:, j, None]))
+        if lo is not None:
+            tn, tf = _slab_interval(ro_t, inv_t, lo[m][:, None], hi[m][:, None])
+            if not any_mode:
+                tf = torch.minimum(tf, best_t)
+            open_ = open_ & _slab_pass(tn, tf)
+        run = (j < counts)[:, None] & ~left & _any_of_warp(open_)             # (nt, WARPS)
+        n_tested += run
+        run = run.repeat_interleave(WARP_RAYS, dim=1)                          # (nt, LANES)
+
         gx, gy, gz = (meta[m][:, i, None, None] for i in range(3))
         w = consts[m][..., None]                                 # (nt, C, NCOEF, 1)
         nx, ny, nz, d, c1x, c1y, c1z, e2x, e2y, e2z, c2x, c2y, c2z, e1x, e1y, e1z = \
@@ -384,7 +456,7 @@ def _sweep_reference_tiles(ro_t, rd_t, consts, meta, chunk_list, counts, entry, 
             m1, m2 = bnum * det, gnum * det
             valid = ((det2 >= det_eps * det_eps) & (m1 > 0.0) & (m2 > 0.0)
                      & (m1 + m2 < det2) & (tnum * det > t_min * det2))
-            new = torch.any(valid, dim=1) & live_tile & (best_i < 0)
+            new = torch.any(valid, dim=1) & run & (best_i < 0)
             best_i = torch.where(new, (m * c).to(torch.int32)[:, None], best_i)
         else:
             ok = torch.abs(det) >= det_eps
@@ -394,18 +466,11 @@ def _sweep_reference_tiles(ro_t, rd_t, consts, meta, chunk_list, counts, entry, 
             tm = torch.where(valid, t, torch.full_like(t, BIG))
             tmin = tm.amin(dim=1)
             amin = torch.argmin(tm, dim=1).to(torch.int32)
-            upd = (tmin < best_t) & live_tile
+            upd = (tmin < best_t) & run
             best_t = torch.where(upd, tmin, best_t)
             best_i = torch.where(upd, (m * c).to(torch.int32)[:, None] + amin, best_i)
-        if visits is not None and j + 1 < n_max:
-            # the kernels' exit vote after position j, where a next one exists
-            if any_mode:
-                go = torch.any(~parked & (best_i < 0), dim=1)
-            else:
-                go = torch.any(torch.where(parked, 0.0, best_t) >= entry[:, j + 1, None], dim=1)
-            stop = running & (j + 1 < counts) & ~go
-            visits[stop] = j + 1
-            running &= ~stop
+    if tested is not None:
+        tested.copy_(n_tested)
     return best_t, best_i
 
 
@@ -420,47 +485,55 @@ def _check(name, x, dtype, shape):
 
 def sweep(ro: Tensor, rd: Tensor, consts: Tensor, meta: Tensor, chunk_list: Tensor,
           counts: Tensor, entry: Tensor, det_eps: float, t_min: float,
-          any_mode: bool = False, visits: Tensor | None = None, stream: bool = False):
+          any_mode: bool = False, tested: Tensor | None = None, stream: bool = False,
+          lo: Tensor | None = None, hi: Tensor | None = None):
     """The chunk sweep over whole tiles: (t (R,) f32, idx (R,) i32), R =
     nt * LANES. CUDA tensors launch the resident kernel (``csrc/sweep.cu``)
     or, with ``stream``, the streaming kernel (``csrc/sweep_stream.cu``); CPU
-    tensors run ``sweep_reference``. Anything else raises. ``visits`` as in
+    tensors run ``sweep_reference``. Anything else raises. ``lo``, ``hi`` (the
+    chunk boxes: the warps' chunk gate) and ``tested`` as in
     ``sweep_reference``. Each kernel counts its launches: ``sweep.launches``
     and ``sweep.stream_launches``."""
     nt = counts.shape[0]
     m, c = consts.shape[0], consts.shape[1]
     r = nt * LANES
     f32, i32 = torch.float32, torch.int32
+    if (lo is None) != (hi is None):
+        raise ValueError("sweep: the chunk boxes lo and hi come together")
     checked = [("ro", ro, f32, (r, 3)), ("rd", rd, f32, (r, 3)),
                ("consts", consts, f32, (m, c, NCOEF)), ("meta", meta, f32, (m, 3)),
                ("chunk_list", chunk_list, i32, (nt, m)), ("counts", counts, i32, (nt,)),
                ("entry", entry, f32, (nt, m))]
-    if visits is not None:
-        checked.append(("visits", visits, i32, (nt,)))
+    if lo is not None:
+        checked += [("lo", lo, f32, (m, 3)), ("hi", hi, f32, (m, 3))]
+    if tested is not None:
+        checked.append(("tested", tested, i32, (nt, WARPS)))
     for name, x, dt, shape in checked:
         _check(name, x, dt, shape)
         if x.device != ro.device:
             raise ValueError(f"sweep: {name} is on {x.device}, ro on {ro.device}")
     if ro.device.type == "cpu":
         return sweep_reference(ro, rd, consts, meta, chunk_list, counts, entry,
-                               det_eps, t_min, any_mode, visits)
+                               det_eps, t_min, any_mode, tested, lo=lo, hi=hi)
     if ro.device.type != "cuda":
         raise ValueError(f"sweep: no kernel for device {ro.device}")
-    if stream:
-        # cp.async copies 16 bytes at a time: a chunk is 64*C bytes from the base
-        if consts.data_ptr() % 16:
-            raise ValueError("sweep: the streaming kernel needs consts aligned to 16 bytes")
-        if 2 * c * NCOEF * 4 > MAX_DYNAMIC_SMEM:
-            raise ValueError(f"sweep: two stages of {c}-triangle chunks need "
-                             f"{2 * c * NCOEF * 4} bytes of shared memory, the card gives a "
-                             f"block {MAX_DYNAMIC_SMEM}")
+    # both kernels read a chunk as 16-byte words: a chunk is 64*C bytes from the base
+    if consts.data_ptr() % 16:
+        raise ValueError("sweep: the kernels need consts aligned to 16 bytes")
+    # what a block needs at least: one ring stage (streaming), a slice a warp (resident)
+    need = c * NCOEF * 4 * (1 if stream else RESIDENT_BLOCK_WARPS)
+    room = MAX_DYNAMIC_SMEM - (STREAM_SMEM_RESERVE if stream else 0)
+    if need > room:
+        raise ValueError(f"sweep: a block needs {need} bytes of shared memory for "
+                         f"{c}-triangle chunks, the card gives it {room}")
     out_t = torch.empty(r, dtype=f32, device=ro.device)
     out_i = torch.empty(r, dtype=i32, device=ro.device)
     lib = cuda_build.load()
     fn = lib.rt_sweep_stream if stream else lib.rt_sweep
     rc = fn(ro.data_ptr(), rd.data_ptr(), consts.data_ptr(), meta.data_ptr(),
+            None if lo is None else lo.data_ptr(), None if hi is None else hi.data_ptr(),
             chunk_list.data_ptr(), counts.data_ptr(), entry.data_ptr(), out_t.data_ptr(),
-            out_i.data_ptr(), None if visits is None else visits.data_ptr(), nt, m, c,
+            out_i.data_ptr(), None if tested is None else tested.data_ptr(), nt, m, c,
             float(det_eps), float(t_min), int(any_mode), ro.device.index or 0,
             torch.cuda.current_stream(ro.device).cuda_stream)
     if rc != 0:
@@ -488,8 +561,10 @@ def sweep_inputs(ro: Tensor, rd: Tensor, pack: AccelPack, cfg: RenderConfig,
     and padded with parked lanes to whole tiles, and each tile's chunk list.
     ``exact_mask`` forces the exact per-ray chunk mask on or off; None picks
     it for query widths up to ``cfg.exact_mask_rays`` and, in big scenes
-    (``EXACT_MASK_MIN_TRIS``), at every width. Big scenes run the exact mask
-    behind the super-chunk gate.
+    (``EXACT_MASK_MIN_TRIS``), at every width, except for CUDA tensors under
+    ``INTERVAL_LISTS_ON_CUDA``, which take the interval list (the kernels'
+    warps prune it themselves). Big scenes run the exact mask behind the
+    super-chunk gate.
     Returns (ro32, rd32, chunk_list, entry, counts)."""
     big = pack.n_chunks * pack.chunk_size >= EXACT_MASK_MIN_TRIS
     f32 = torch.float32
@@ -497,7 +572,8 @@ def sweep_inputs(ro: Tensor, rd: Tensor, pack: AccelPack, cfg: RenderConfig,
     ro32 = torch.cat([ro.to(f32), ro.new_full((pad, 3), PARK_DISTANCE, dtype=f32)])
     rd32 = torch.cat([rd.to(f32), ro.new_full((pad, 3), 1.0, dtype=f32)])
     if exact_mask is None:
-        exact_mask = ro32.shape[0] <= cfg.exact_mask_rays or big
+        exact_mask = ((ro32.shape[0] <= cfg.exact_mask_rays or big)
+                      and not (INTERVAL_LISTS_ON_CUDA and ro.device.type == "cuda"))
     nt = ro32.shape[0] // LANES
     if exact_mask:
         chunk_list, entry, counts = chunk_mask_exact(ro32, rd32, pack.lo, pack.hi, nt,
@@ -524,7 +600,7 @@ def closest_triangle(scene: Scene, ro: Tensor, rd: Tensor, cfg: RenderConfig,
     ro32, rd32, chunk_list, entry, counts = sweep_inputs(ro, rd, pack, cfg, exact_mask)
     t, idx = sweep(ro32, rd32, pack.consts, pack.meta, chunk_list, counts, entry,
                    float(cfg.det_epsilon), float(cfg.smallest_dist), any_mode,
-                   stream=not pack.resident)
+                   stream=not pack.resident, lo=pack.lo, hi=pack.hi)
     idx = idx[:r].long()
     t = torch.where(idx >= 0, t[:r].to(ro.dtype), torch.full((r,), BIG, dtype=ro.dtype,
                                                              device=ro.device))

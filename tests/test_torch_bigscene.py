@@ -184,10 +184,11 @@ def test_residency_decision_equals_jax(n, c):
 
 @pytest.mark.parametrize("any_mode", [False, True], ids=["closest", "any"])
 def test_blocked_twin_and_exit_positions(any_mode):
-    """Walking the tiles in blocks changes nothing, bit for bit; and cutting
-    every list at the position where a kernel's exit vote stops leaves every
-    live lane's result unchanged. The rays are the close framing's primaries
-    over the coarse mesh, so whole tiles hit and stop early."""
+    """Walking the tiles in blocks changes nothing, bit for bit; and the
+    positions a warp passes over (after its exit vote, or whose box none of
+    its rays enters) leave every live lane's result unchanged. The rays are
+    the close framing's primaries over the coarse mesh, so whole warps hit
+    and stop early."""
     from realtrace_tpu_torch.render.pipeline import _tiled_rays
     scene, cam = scenes.mesh_scene(detail=0.25, device="cpu")
     pack = sweep.build_pack(accel.with_chunks(scene, CFG), CFG)
@@ -196,17 +197,25 @@ def test_blocked_twin_and_exit_positions(any_mode):
     ro32, rd32, chunk_list, entry, counts = sweep.sweep_inputs(ro, rd, pack, CFG, exact_mask=False)
     assert counts.shape[0] == 6
     args = (ro32, rd32, pack.consts, pack.meta, chunk_list, counts, entry, 1e-7, 1e-4, any_mode)
-    visits = torch.zeros_like(counts)
-    t_all, i_all = sweep.sweep_reference(*args, visits=visits)
-    v_b = torch.zeros_like(counts)
-    t_b, i_b = sweep.sweep_reference(*args, visits=v_b, block_tiles=4)      # blocks of 4 and 2
-    assert torch.equal(t_b, t_all) and torch.equal(i_b, i_all) and torch.equal(v_b, visits)
-    assert bool((visits <= counts).all()) and bool((visits >= counts.clamp(max=1)).all())
-    assert int(visits.sum()) < int(counts.sum())       # some tile stopped early
-    t_cut, i_cut = sweep.sweep_reference(ro32, rd32, pack.consts, pack.meta, chunk_list, visits,
-                                         entry, 1e-7, 1e-4, any_mode)
+    tested = torch.zeros((6, sweep.WARPS), dtype=torch.int32)
+    t_all, i_all = sweep.sweep_reference(*args, tested=tested)           # exits only
+    t_b = torch.zeros_like(tested)
+    t_blk, i_blk = sweep.sweep_reference(*args, tested=t_b, block_tiles=4)   # blocks of 4 and 2
+    assert torch.equal(t_blk, t_all) and torch.equal(i_blk, i_all) and torch.equal(t_b, tested)
+    assert bool((tested <= counts[:, None]).all())
+    assert int(tested.sum()) < int(counts.sum()) * sweep.WARPS      # some warp stopped early
+    gated = torch.zeros_like(tested)
+    t_g, i_g = sweep.sweep_reference(*args, tested=gated, lo=pack.lo, hi=pack.hi)
+    assert bool((gated <= tested).all()) and int(gated.sum()) < int(tested.sum())
     live = ro32[:, 0] != sweep.PARK_DISTANCE
-    assert torch.equal(t_cut[live], t_all[live]) and torch.equal(i_cut[live], i_all[live])
+    assert torch.equal(t_g[live], t_all[live]) and torch.equal(i_g[live], i_all[live])
+    # a tile-wide walk of every listed position (one warp's worth of parked
+    # lanes cannot stop it) gives the same live results
+    full = torch.full_like(chunk_list, 0, dtype=torch.float32)
+    t_f, i_f = sweep.sweep_reference(ro32, rd32, pack.consts, pack.meta, chunk_list, counts,
+                                     full, 1e-7, 1e-4, any_mode)
+    if not any_mode:
+        assert torch.equal(t_f[live], t_all[live]) and torch.equal(i_f[live], i_all[live])
 
 
 def test_copy_offsets_follow_the_reference_walk():

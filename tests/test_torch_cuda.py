@@ -47,46 +47,81 @@ def fan_rays(device, nt=4, seed=4):
             torch.as_tensor(d, dtype=torch.float32, device=device))
 
 
+def wide_fan_rays(device, nt, seed=6):
+    """nt tiles of rays from origins around the soup towards it, wide enough
+    that the warps of a tile enter different chunks; a few parked lanes and a
+    whole parked warp."""
+    rng = np.random.default_rng(seed)
+    o = np.repeat(rng.uniform(-25, 25, (nt * 8, 3)), sweep.WARP_RAYS, axis=0)
+    d = -o / np.linalg.norm(o, axis=1, keepdims=True) + 0.25 * rng.standard_normal(o.shape)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o[7:50], d[7:50] = PARK_DISTANCE, (1.0, 0.0, 0.0)
+    o[256:384], d[256:384] = PARK_DISTANCE, (1.0, 0.0, 0.0)
+    return (torch.as_tensor(o, dtype=torch.float32, device=device),
+            torch.as_tensor(d, dtype=torch.float32, device=device))
+
+
+def both_kernels_against_twin(pack, cfg, ro, rd, exact, any_mode):
+    """Each kernel against the gated twin, results and ``tested``; the two
+    kernels against each other; gate on against gate off."""
+    ro32, rd32, chunk_list, entry, counts = sweep.sweep_inputs(ro, rd, pack, cfg, exact)
+    args = (ro32, rd32, pack.consts, pack.meta, chunk_list, counts, entry, 1e-7, 1e-4, any_mode)
+    nt = counts.shape[0]
+    n_s, n_r, n_t, n_off = (torch.zeros((nt, sweep.WARPS), dtype=torch.int32, device=ro.device)
+                            for _ in range(4))
+    before = sweep.sweep.launches, sweep.sweep.stream_launches
+    st, si = sweep.sweep(*args, tested=n_s, stream=True, lo=pack.lo, hi=pack.hi)
+    kt, ki = sweep.sweep(*args, tested=n_r, lo=pack.lo, hi=pack.hi)
+    torch.cuda.synchronize()
+    assert (sweep.sweep.launches, sweep.sweep.stream_launches) == (before[0] + 1, before[1] + 1)
+    rt, ri = sweep.sweep_reference(*args, tested=n_t, lo=pack.lo, hi=pack.hi)
+    assert 0 < int((ri >= 0).sum()) < ri.numel()
+    assert torch.equal(ki, ri) and torch.equal(kt, rt)
+    assert torch.equal(si, ri) and torch.equal(st, rt)
+    assert torch.equal(n_r, n_t) and torch.equal(n_s, n_t)
+    assert 0 < int(n_t.sum()) < int(counts.sum()) * sweep.WARPS
+    for stream in (False, True):                      # gate off: same results, more work
+        ot, oi = sweep.sweep(*args, tested=n_off, stream=stream)
+        ref_off = torch.zeros_like(n_off)
+        sweep.sweep_reference(*args, tested=ref_off)
+        assert torch.equal(oi, ri) and torch.equal(ot, rt)
+        assert torch.equal(n_off, ref_off) and bool((n_off >= n_t).all())
+
+
 @pytest.mark.parametrize("exact", [False, True], ids=["interval", "exact"])
 @pytest.mark.parametrize("any_mode", [False, True], ids=["closest", "any"])
 def test_kernel_equals_twin(cuda, any_mode, exact):
-    """The kernel rounds every step as the twin does: results are equal."""
-    pack = soup_pack(cuda)
-    ro, rd = fan_rays(cuda)
-    ro32, rd32, chunk_list, entry, counts = sweep.sweep_inputs(ro, rd, pack, CFG, exact)
-    args = (ro32, rd32, pack.consts, pack.meta, chunk_list, counts, entry, 1e-7, 1e-4, any_mode)
-    launches = sweep.sweep.launches
-    kt, ki = sweep.sweep(*args)
-    torch.cuda.synchronize()
-    assert sweep.sweep.launches == launches + 1
-    rt, ri = sweep.sweep_reference(*args)
-    assert 0 < int((ri >= 0).sum()) < ri.numel()
-    assert torch.equal(ki, ri)
-    assert torch.equal(kt, rt)
+    """The kernels round every step as the twin does: results are equal."""
+    both_kernels_against_twin(soup_pack(cuda), CFG, *fan_rays(cuda), exact, any_mode)
 
 
 @pytest.mark.parametrize("chunk_size", [32, 256, 512], ids=["c32", "c256", "c512"])
 @pytest.mark.parametrize("any_mode", [False, True], ids=["closest", "any"])
 def test_stream_kernel_equals_twin_and_resident_kernel(cuda, any_mode, chunk_size):
     """The streaming kernel against the twin and the resident kernel, results
-    and exit positions, bit for bit; c512 needs more than 48 KB of dynamic
-    shared memory for its two stages."""
+    and tested positions, bit for bit; c512 needs more than 48 KB of dynamic
+    shared memory for its ring."""
     cfg = dataclasses.replace(CFG, chunk_size=chunk_size)
-    pack = soup_pack(cuda, n=2000, cfg=cfg)
-    ro, rd = fan_rays(cuda)
+    both_kernels_against_twin(soup_pack(cuda, n=2000, cfg=cfg), cfg, *fan_rays(cuda), False,
+                              any_mode)
+
+
+@pytest.mark.parametrize("nt", [1, 30], ids=["one-tile", "30-tiles"])
+@pytest.mark.parametrize("any_mode", [False, True], ids=["closest", "any"])
+def test_narrow_wavefronts_equal_twin(cuda, any_mode, nt):
+    """A one-tile and a 30-tile wavefront (a deep level's width) over 63
+    chunks of 32 (two list windows) and over chunks of 256: warps of one
+    tile enter different chunks, one warp is parked."""
+    for chunk_size in (32, 256):
+        cfg = dataclasses.replace(CFG, chunk_size=chunk_size)
+        pack = soup_pack(cuda, n=2000, cfg=cfg)
+        ro, rd = wide_fan_rays(cuda, nt)
+        both_kernels_against_twin(pack, cfg, ro, rd, False, any_mode)
+    tested = torch.zeros((nt, sweep.WARPS), dtype=torch.int32, device=cuda)
     ro32, rd32, chunk_list, entry, counts = sweep.sweep_inputs(ro, rd, pack, cfg, False)
-    args = (ro32, rd32, pack.consts, pack.meta, chunk_list, counts, entry, 1e-7, 1e-4, any_mode)
-    before = sweep.sweep.launches, sweep.sweep.stream_launches
-    v_s, v_r, v_t = (torch.zeros_like(counts) for _ in range(3))
-    st, si = sweep.sweep(*args, visits=v_s, stream=True)
-    kt, ki = sweep.sweep(*args, visits=v_r)
-    torch.cuda.synchronize()
-    assert (sweep.sweep.launches, sweep.sweep.stream_launches) == (before[0] + 1, before[1] + 1)
-    rt, ri = sweep.sweep_reference(*args, visits=v_t)
-    assert 0 < int((ri >= 0).sum()) < ri.numel()
-    assert torch.equal(si, ri) and torch.equal(st, rt)
-    assert torch.equal(si, ki) and torch.equal(st, kt)
-    assert torch.equal(v_s, v_t) and torch.equal(v_r, v_t)
+    sweep.sweep(ro32, rd32, pack.consts, pack.meta, chunk_list, counts, entry, 1e-7, 1e-4,
+                any_mode, tested=tested, stream=True, lo=pack.lo, hi=pack.hi)
+    assert int(tested[0, 2]) == 0 and int(tested[0].sum()) > 0      # the parked warp
 
 
 def test_stream_kernel_rejects_misaligned_and_non_contiguous(cuda):
@@ -96,17 +131,40 @@ def test_stream_kernel_rejects_misaligned_and_non_contiguous(cuda):
     flat = torch.empty(pack.consts.numel() + 1, device=cuda)
     off = flat[1:].view_as(pack.consts).copy_(pack.consts)      # 4 bytes off a 16-byte line
     assert off.is_contiguous() and off.data_ptr() % 16 == 4
-    with pytest.raises(ValueError, match="aligned"):
-        sweep.sweep(ro32, rd32, off, pack.meta, chunk_list, counts, entry, 1e-7, 1e-4,
-                    stream=True)
+    for stream in (False, True):
+        with pytest.raises(ValueError, match="aligned"):
+            sweep.sweep(ro32, rd32, off, pack.meta, chunk_list, counts, entry, 1e-7, 1e-4,
+                        stream=stream)
     with pytest.raises(ValueError, match="contiguous"):
         sweep.sweep(ro32, rd32, pack.consts, pack.meta, chunk_list, counts,
                     entry.t().contiguous().t(), 1e-7, 1e-4, stream=True)
-    huge = torch.zeros((1, 2048, sweep.NCOEF), device=cuda)     # two stages: 256 KB
+    with pytest.raises(ValueError, match="contiguous"):
+        sweep.sweep(ro32, rd32, pack.consts, pack.meta, chunk_list, counts, entry, 1e-7, 1e-4,
+                    lo=pack.lo.t().contiguous().t(), hi=pack.hi)
+
+
+def test_refused_launch_raises(cuda, monkeypatch):
+    """Past the wrapper's own check, a ring the card cannot give is refused by
+    the CUDA runtime, and the refusal is raised, not swallowed."""
+    pack = soup_pack(cuda)
+    ro, rd = fan_rays(cuda, nt=2)
+    ro32, rd32, chunk_list, entry, counts = sweep.sweep_inputs(ro, rd, pack, CFG)
+    huge = torch.zeros((1, 4096, sweep.NCOEF), device=cuda)
     one = torch.zeros((2, 1), dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError, match="shared memory"):
-        sweep.sweep(ro32, rd32, huge, pack.meta[:1], one, counts, one.float(), 1e-7, 1e-4,
-                    stream=True)
+    for stream in (False, True):
+        with pytest.raises(ValueError, match="shared memory"):
+            sweep.sweep(ro32, rd32, huge, pack.meta[:1], one, counts, one.float(), 1e-7, 1e-4,
+                        stream=stream)
+    monkeypatch.setattr(sweep, "MAX_DYNAMIC_SMEM", 1 << 30)
+    for stream in (False, True):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            sweep.sweep(ro32, rd32, huge, pack.meta[:1], one, counts, one.float(), 1e-7, 1e-4,
+                        stream=stream)
+    torch.cuda.synchronize()
+    args = (ro32, rd32, pack.consts, pack.meta, chunk_list, counts, entry, 1e-7, 1e-4)
+    kt, ki = sweep.sweep(*args)                       # the card still takes launches
+    rt, ri = sweep.sweep_reference(*args)
+    assert torch.equal(ki, ri) and torch.equal(kt, rt)
 
 
 @pytest.mark.parametrize("scene_fn", ["mesh", "glass"])

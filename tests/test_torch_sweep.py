@@ -196,9 +196,14 @@ def test_sweep_wrapper_checks_and_limits():
         sweep.sweep(ro32.double(), ro32, pack.consts, pack.meta, *lists, 1e-7, 1e-4)
     with pytest.raises(ValueError):
         sweep.sweep(ro32[:-1], ro32, pack.consts, pack.meta, *lists, 1e-7, 1e-4)
-    with pytest.raises(ValueError, match="visits"):
+    with pytest.raises(ValueError, match="tested"):
         sweep.sweep(ro32, ro32, pack.consts, pack.meta, *lists, 1e-7, 1e-4,
-                    visits=torch.zeros(2, dtype=torch.int32))
+                    tested=torch.zeros(2, dtype=torch.int32))
+    with pytest.raises(ValueError, match="hi"):
+        sweep.sweep(ro32, ro32, pack.consts, pack.meta, *lists, 1e-7, 1e-4,
+                    lo=pack.lo, hi=pack.hi[:-1])
+    with pytest.raises(ValueError, match="together"):
+        sweep.sweep(ro32, ro32, pack.consts, pack.meta, *lists, 1e-7, 1e-4, lo=pack.lo)
     # 65,536 triangle slots and more: the query runs, through the big-scene
     # masks (2,100 copies of the pack, all but the first moved far away)
     rep = 2100
