@@ -37,8 +37,11 @@ and the script exits 1 without printing a result:
 5. timing with CUDA events after one warm-up frame: mesh_scene's serial and
    close framings, the x4, x8, x16 and glass frames; each kernel beside the
    twin on its 1080p primary query, with the least time the card could take
-   for the (ray, triangle) pairs its warps tested, and alone on the
-   reflection and shadow wavefronts; the two kernels side by side on the
+   for the (ray, triangle) pairs its warps tested, and on the reflection
+   and shadow wavefronts; each of these queries runs under the card's list
+   policy, as the main path gives it to the kernel, and holds the kernel's
+   results and ``tested`` to the twin's bit for bit, so the bound rests on
+   a verified count; the two kernels side by side on the
    x2 and x8 scenes' primary queries. Information, not a benchmark.
 
 The line before the last is {"kernels": [...]}; the last line is
@@ -276,11 +279,13 @@ def main_path(name, scene, camera, cfg):
 
 
 def query_times(name, ro, rd, pack, cfg, stream, twin_reps, any_mode=False):
-    """One kernel on one 1080p query: its time, the twin's (``twin_reps`` 0:
-    not timed), and the least time the card could take. The bound counts the
+    """One kernel on one 1080p query under the card's list policy, the main
+    path's own inputs: its time, the twin's (``twin_reps`` 0: run once, not
+    timed), and the least time the card could take. The kernel's results and
+    ``tested`` counts are held to the twin's on these inputs, bit for bit,
+    so the bound rests on a verified count. The bound counts the
     (ray, triangle) pairs the function requires at warp granularity: the
-    list positions each warp tested (the kernel's ``tested`` output, equal to
-    the twin's on the card) times its 128 rays times the chunk size, each
+    list positions each warp tested times its 128 rays times the chunk size, each
     pair as PAIR_INSTRUCTIONS unfused FP32 instructions (18 multiplies, 15
     adds and subtractions for the four forms, 3 multiplies, 1 add and 1
     division for the divided tests; compares and selects not counted; any
@@ -297,14 +302,23 @@ def query_times(name, ro, rd, pack, cfg, stream, twin_reps, any_mode=False):
     args = (ro32, rd32, pack.consts, pack.meta, chunk_list, counts, entry,
             float(cfg.det_epsilon), float(cfg.smallest_dist), any_mode)
     boxes = dict(lo=pack.lo, hi=pack.hi)
-    tested, ungated = (torch.zeros((counts.shape[0], sweep.WARPS), dtype=torch.int32,
-                                   device=ro.device) for _ in range(2))
-    sweep.sweep(*args, tested=tested, stream=stream, **boxes)
+    tested, ungated, twin_tested = (torch.zeros((counts.shape[0], sweep.WARPS),
+                                                dtype=torch.int32, device=ro.device)
+                                    for _ in range(3))
+    kt, ki = sweep.sweep(*args, tested=tested, stream=stream, **boxes)
     sweep.sweep(*args, tested=ungated, stream=stream)
     k_ms = cuda_ms(lambda: sweep.sweep(*args, stream=stream, **boxes), reps=10)
     off_ms = cuda_ms(lambda: sweep.sweep(*args, stream=stream), reps=10)
-    p_ms = (cuda_ms(lambda: sweep.sweep_reference(*args, **boxes), reps=twin_reps)
-            if twin_reps else None)
+    twin_out = []
+
+    def twin():
+        twin_out[:] = sweep.sweep_reference(*args, tested=twin_tested, **boxes)
+
+    p_ms = cuda_ms(twin, reps=twin_reps) if twin_reps else twin()
+    check(torch.equal(ki, twin_out[1]) and torch.equal(kt, twin_out[0])
+          and torch.equal(tested, twin_tested),
+          f"{name}: results and tested equal the twin's on the main path's lists, bit for bit")
+    del twin_out, kt, ki
     listed = int(counts.sum())
     pairs = int(tested.sum()) * sweep.WARP_RAYS * pack.chunk_size
     tile_pairs = int(ungated.amax(dim=1).sum()) * sweep.LANES * pack.chunk_size

@@ -11,18 +11,17 @@
 // walks the tile's list on its own, leaves it by its own vote, and tests a
 // chunk only if one of its own rays enters the chunk's box. Warps share
 // nothing, so the list loop has no block barrier and the block size is free:
-// RT_K1_WARPS work items a block. A deep-level wavefront of 30 tiles is 240
+// four work items a block (one, two and eight measured 7-25% slower). A deep-level wavefront of 30 tiles is 240
 // work items in 60 blocks, spread over 60 of the card's 132 SMs with one warp
 // on each scheduler, where a block per tile left 102 SMs empty.
 //
 // This form serves small chunks (32 triangles, 2 KB). A warp copies the chunk
 // it is about to test into its own slice of shared memory with cp.async,
-// fenced with __syncwarp, and reads it back as warp-wide broadcasts
-// (RT_K1_SMEM, the default). The other read path, every lane reading the
-// table's 16-byte words where they lie through the read-only path, one
-// triangle ahead of the arithmetic, measured 0-11% slower on the H100
-// (RT_K1_SMEM=0; PERF.md has the numbers). List entries come 32 positions at
-// a time, one per lane, and go round by shuffle.
+// fenced with __syncwarp, and reads it back as warp-wide broadcasts. The
+// other read path, every lane reading the table's 16-byte words where they
+// lie through the read-only path, one triangle ahead of the arithmetic,
+// measured 0-11% slower on the H100 (PERF.md has the numbers). List entries
+// come 32 positions at a time, one per lane, and go round by shuffle.
 //
 // What bounds it on the H100: the FP32 work per (ray, triangle) pair on CUDA
 // cores: 18 multiplies and 15 adds for the four forms, a division and some
@@ -38,23 +37,16 @@
 
 #include "sweep_common.cuh"
 
-#ifndef RT_K1_WARPS
-#define RT_K1_WARPS 4
-#endif
-#ifndef RT_K1_SMEM
-#define RT_K1_SMEM 1
-#endif
-
 namespace {
 
 using namespace rt;
 
-constexpr int kWarps = RT_K1_WARPS;
+constexpr int kWarps = 4;   // work items (warps) a block; ops/sweep.py sizes the slices by it
 
 template <bool kAny>
 // three blocks of four warps an SM leave ptxas 168 registers: left to itself
 // it aims at 128 and spills
-__global__ void __launch_bounds__(kWarps * 32, kWarps <= 4 ? 3 : 1)
+__global__ void __launch_bounds__(kWarps * 32, 3)
 sweep_kernel(const float* __restrict__ ro, const float* __restrict__ rd,
              const float* __restrict__ consts, const float* __restrict__ meta,
              const float* __restrict__ lo, const float* __restrict__ hi,
@@ -62,9 +54,7 @@ sweep_kernel(const float* __restrict__ ro, const float* __restrict__ rd,
              const float* __restrict__ entry, float* __restrict__ out_t,
              int* __restrict__ out_i, int* __restrict__ tested, int n_tiles, int m_chunks, int c,
              Thresholds th) {
-#if RT_K1_SMEM
   extern __shared__ float4 s_slices[];  // kWarps slices of c * kCoef floats
-#endif
   const int lane = threadIdx.x & 31;
   const int item = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (item >= n_tiles * kWarpsPerTile) return;   // whole warps only
@@ -94,7 +84,6 @@ sweep_kernel(const float* __restrict__ ro, const float* __restrict__ rd,
       const float gx = __ldg(meta + 3 * m), gy = __ldg(meta + 3 * m + 1),
                   gz = __ldg(meta + 3 * m + 2);
       const float4* src = table + static_cast<size_t>(m) * chunk_f4;
-#if RT_K1_SMEM
       float4* slice = s_slices + (threadIdx.x >> 5) * chunk_f4;
       __syncwarp();   // the previous chunk is no longer read
       for (int i = lane; i < chunk_f4; i += 32)
@@ -102,10 +91,7 @@ sweep_kernel(const float* __restrict__ ro, const float* __restrict__ rd,
       __pipeline_commit();
       __pipeline_wait_prior(0);
       __syncwarp();   // every lane's part of the slice is visible
-      sweep_chunk<kAny, false>(r, slice, c, m, gx, gy, gz, th);
-#else
-      sweep_chunk<kAny, true>(r, src, c, m, gx, gy, gz, th);
-#endif
+      sweep_chunk<kAny>(r, slice, c, m, gx, gy, gz, th);
       ++n_tested;
     }
   }
@@ -119,7 +105,7 @@ cudaError_t launch(const float* ro, const float* rd, const float* consts, const 
                    const float* lo, const float* hi, const int* chunk_list, const int* counts,
                    const float* entry, float* out_t, int* out_i, int* tested, int n_tiles,
                    int m_chunks, int c, Thresholds th, cudaStream_t s) {
-  const size_t smem = RT_K1_SMEM ? kWarps * static_cast<size_t>(c) * kCoef * sizeof(float) : 0;
+  const size_t smem = kWarps * static_cast<size_t>(c) * kCoef * sizeof(float);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(sweep_kernel<kAny>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -28,29 +28,9 @@
 // __fadd_rn / __fsub_rn (no FMA contraction), evaluated in the twin's order,
 // so the kernels reproduce the twin bit for bit, results and verdicts; a
 // contracted FMA would flip rays that pass within an ulp of a triangle edge.
-//
-// Build-time switches (defaults are what the measurements on the H100 chose;
-// realtrace_tpu_torch/apps/sweep_variants.py builds and times the others):
-//   RT_SIGN_PRETEST   closest mode: skip t, the division and the divided
-//                     tests for a triangle no ray of the warp can pass, by the
-//                     signs of the numerators (1) and also their sum (2).
-//                     Off (0): the votes cost more than the divisions they
-//                     save (PERF.md).
-//   RT_TRI_UNROLL     triangles of a chunk the pair loop takes at a time: 2
-//                     measured 7-8% faster than 1; 4 gains 1-5% more in closest
-//                     mode and loses 7-13% in any mode.
 #pragma once
 
 #include <cuda_runtime.h>
-
-#ifndef RT_SIGN_PRETEST
-#define RT_SIGN_PRETEST 0
-#endif
-#ifndef RT_TRI_UNROLL
-#define RT_TRI_UNROLL 2
-#endif
-#define RT_PRAGMA(x) _Pragma(#x)
-#define RT_UNROLL(n) RT_PRAGMA(unroll n)
 
 namespace rt {
 
@@ -183,13 +163,13 @@ struct Thresholds {
 // validity tests, keeps the first minimum within the chunk and replaces the
 // best hit only when strictly closer. Any mode applies the division-free sign
 // tests and records the first occluding chunk. All 32 lanes of the warp call
-// this together.
-//
-// kGlobal: tri is global memory; every lane reads the same 16 bytes four times
-// a triangle through the read-only path (one transaction a warp each), one
-// triangle ahead of the arithmetic. Otherwise tri is shared memory, read as
-// warp-wide broadcasts.
-template <bool kAny, bool kGlobal>
+// this together; tri is shared memory, read as warp-wide broadcasts. The loop
+// takes two triangles at a time: on the H100 that measured 7-8% faster than
+// one; four gained 1-5% more in closest mode and lost 7-13% in any mode. A
+// closest-mode vote that skips the division for a triangle whose numerators'
+// signs no ray of the warp passes measured 17-49% slower than dividing
+// (PERF.md), so every pair is divided.
+template <bool kAny>
 __device__ __forceinline__ void sweep_chunk(Rays& r, const float4* __restrict__ tri, int c,
                                             int m, float gx, float gy, float gz,
                                             const Thresholds& th) {
@@ -209,19 +189,10 @@ __device__ __forceinline__ void sweep_chunk(Rays& r, const float4* __restrict__ 
     occ[k] = false;
   }
 
-  float4 w0, w1, w2, w3;
-  if (kGlobal) { w0 = __ldg(tri); w1 = __ldg(tri + 1); w2 = __ldg(tri + 2); w3 = __ldg(tri + 3); }
-  RT_UNROLL(RT_TRI_UNROLL)
+#pragma unroll 2
   for (int i = 0; i < c; ++i) {
-    float4 a0, a1, a2, a3;
-    if (kGlobal) {
-      a0 = w0; a1 = w1; a2 = w2; a3 = w3;
-      const float4* nxt = tri + 4 * min(i + 1, c - 1);
-      w0 = __ldg(nxt); w1 = __ldg(nxt + 1); w2 = __ldg(nxt + 2); w3 = __ldg(nxt + 3);
-    } else {
-      const float4* cur = tri + 4 * i;
-      a0 = cur[0]; a1 = cur[1]; a2 = cur[2]; a3 = cur[3];
-    }
+    const float4* cur = tri + 4 * i;
+    const float4 a0 = cur[0], a1 = cur[1], a2 = cur[2], a3 = cur[3];
     const float nx = a0.x, ny = a0.y, nz = a0.z, d = a0.w;
     const float c1x = a1.x, c1y = a1.y, c1z = a1.z;
     const float e2x = a1.w, e2y = a2.x, e2z = a2.y;
@@ -250,27 +221,10 @@ __device__ __forceinline__ void sweep_chunk(Rays& r, const float4* __restrict__ 
         const float gnum = dot3(c2x, c2y, c2z, r.dx[k], r.dy[k], r.dz[k])
                            + dot3(e1x, e1y, e1z, px[k], py[k], pz[k]);
         const bool ok = fabsf(det) >= th.det_eps;
-#if RT_SIGN_PRETEST
-        // Necessary conditions of the divided tests, whatever the rounding of
-        // the division: beta = bnum / det > 0 and gamma = gnum / det > 0 need
-        // numerators of det's sign; beta + gamma < 1 needs |bnum| + |gnum|
-        // below |det| up to the three roundings of the divided form (3 * 2^-24,
-        // against the pad's 9.5e-7). A ray that fails them cannot be valid,
-        // and a triangle that no ray of the warp passes skips t, the division
-        // and the divided tests.
-        bool pre = ok && (det > 0.0f ? (bnum > 0.0f && gnum > 0.0f)
-                                     : (bnum < 0.0f && gnum < 0.0f));
-#if RT_SIGN_PRETEST > 1
-        pre = pre && fabsf(bnum) + fabsf(gnum) <= mul(fabsf(det), kPadMul);
-#endif
-        if (!__any_sync(kFullWarp, pre)) continue;
-#else
-        const bool pre = true;
-#endif
         const float tnum = d - dot3(nx, ny, nz, rx[k], ry[k], rz[k]);
         const float invd = 1.0f / (ok ? det : 1.0f);
         const float t = mul(tnum, invd), beta = mul(bnum, invd), gamma = mul(gnum, invd);
-        const bool valid = pre && ok && (beta > 0.0f) && (gamma > 0.0f)
+        const bool valid = ok && (beta > 0.0f) && (gamma > 0.0f)
                            && (beta + gamma < 1.0f) && (t > th.t_min);
         if (valid && t < cmin[k]) { cmin[k] = t; carg[k] = i; }
       }

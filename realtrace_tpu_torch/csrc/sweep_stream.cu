@@ -7,10 +7,9 @@
 // into VMEM. The plain PyTorch twin is the resident kernel's:
 // realtrace_tpu_torch/ops/sweep.py::sweep_reference.
 //
-// A block is RT_STREAM_WARPS consumer warps of one 1024-ray tile, each owning
-// 128 rays of the tile (sweep_common.cuh has the map and the votes), and one
-// producer warp; a tile's eight warps are shared out among 8 / RT_STREAM_WARPS
-// blocks. The tile's list goes through in windows of 32 positions:
+// A block is four consumer warps of one 1024-ray tile, each owning 128 rays
+// of the tile (sweep_common.cuh has the map and the votes), and one producer
+// warp; a tile's eight warps are shared out between two blocks. The tile's list goes through in windows of 32 positions:
 //   A. each consumer warp takes the votes of the window's positions with its
 //      best hits as they stand (a verdict against a position only hardens as
 //      best hits improve, so none is lost) and publishes a 32-bit mask; one
@@ -33,17 +32,16 @@
 // What bounds it on the H100: as sweep.cu, the FP32 pair work on CUDA cores.
 // The table (a few MB) sits in the 50 MB L2, so the ring hides L2 latency,
 // not HBM bandwidth, and its depth made no difference that could be measured
-// (RT_STREAM_STAGES 2, 3, 4, 6 within 2%): two stages, the least shared
-// memory, so that blocks share an SM even at chunks of 512. Four consumer
-// warps a block measured 4-6% faster than eight (RT_STREAM_WARPS): two
-// blocks share an SM, each waits for the slowest of four warps, not of eight,
+// (2, 3, 4 and 6 stages within 2%): two stages, the least shared memory, so
+// that blocks share an SM even at chunks of 512. Four consumer warps a block
+// measured 4-6% faster than eight: two blocks share an SM, each waits for the slowest of four warps, not of eight,
 // and fetches what four warps want, not eight. The design spends pair work
 // only on chunks a warp's own rays enter and fetches only chunks some warp of
 // the block wants. On tables that fit L2 the resident form (sweep.cu) is the
 // faster of the two at every chunk size measured (PERF.md); where the
 // boundary between them should lie on this card is open.
 //
-// The ring is stages * 64 * C bytes of dynamic shared memory; past 48 KB the
+// The ring is 2 * 64 * C bytes of dynamic shared memory; past 48 KB the
 // launcher raises the kernel's limit first (cudaFuncSetAttribute) and reports
 // its error if the card refuses.
 
@@ -51,25 +49,16 @@
 
 #include "sweep_common.cuh"
 
-#ifndef RT_STREAM_STAGES
-#define RT_STREAM_STAGES 2
-#endif
-#ifndef RT_STREAM_WARPS
-#define RT_STREAM_WARPS 4
-#endif
-
 namespace {
 
 using namespace rt;
 
-constexpr int kMaxStages = 8;
+constexpr int kStages = 2;      // of the ring; ops/sweep.py sizes its check by it
 // consumer warps a block; a tile is shared out among kWarpsPerTile / kConsumers blocks
-constexpr int kConsumers = RT_STREAM_WARPS;
-static_assert(kWarpsPerTile % kConsumers == 0, "RT_STREAM_WARPS divides the warps of a tile");
+constexpr int kConsumers = 4;
+static_assert(kWarpsPerTile % kConsumers == 0, "whole blocks share out a tile");
 constexpr int kParts = kWarpsPerTile / kConsumers;
 constexpr int kThreads = (kConsumers + 1) * 32;      // the last warp produces
-// shared memory a block may use on the H100, less room for the barriers and masks
-constexpr size_t kMaxSmem = 232448 - 1024;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -117,16 +106,16 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t b
 template <bool kAny>
 // two blocks of four consumer warps an SM leave ptxas its registers; asked
 // for three it spills
-__global__ void __launch_bounds__(kThreads, kConsumers <= 4 ? 2 : 1)
+__global__ void __launch_bounds__(kThreads, 2)
 sweep_stream_kernel(const float* __restrict__ ro, const float* __restrict__ rd,
                     const float* __restrict__ consts, const float* __restrict__ meta,
                     const float* __restrict__ lo, const float* __restrict__ hi,
                     const int* __restrict__ chunk_list, const int* __restrict__ counts,
                     const float* __restrict__ entry, float* __restrict__ out_t,
                     int* __restrict__ out_i, int* __restrict__ tested, int m_chunks, int c,
-                    int stages, Thresholds th) {
-  extern __shared__ __align__(128) float4 s_ring[];   // stages * c * kCoef floats
-  __shared__ __align__(8) uint64_t s_full[kMaxStages], s_empty[kMaxStages];
+                    Thresholds th) {
+  extern __shared__ __align__(128) float4 s_ring[];   // kStages * c * kCoef floats
+  __shared__ __align__(8) uint64_t s_full[kStages], s_empty[kStages];
   __shared__ unsigned s_mask[2][kConsumers];
   __shared__ int s_left[2][kConsumers];
 
@@ -142,7 +131,7 @@ sweep_stream_kernel(const float* __restrict__ ro, const float* __restrict__ rd,
   const uint32_t chunk_bytes = static_cast<uint32_t>(chunk_f4) * sizeof(float4);
 
   if (threadIdx.x == 0) {
-    for (int s = 0; s < stages; ++s) {
+    for (int s = 0; s < kStages; ++s) {
       mbar_init(&s_full[s], 1);                // the producer's arrive with the byte count
       mbar_init(&s_empty[s], kConsumers);      // one arrival a consumer warp
     }
@@ -208,14 +197,14 @@ sweep_stream_kernel(const float* __restrict__ ro, const float* __restrict__ rd,
         if (run) { gx = __ldg(meta + 3 * m); gy = __ldg(meta + 3 * m + 1); gz = __ldg(meta + 3 * m + 2); }
         mbar_wait(&s_full[stage], round & 1);
         if (run) {
-          sweep_chunk<kAny, false>(r, s_ring + static_cast<size_t>(stage) * chunk_f4, c, m, gx,
+          sweep_chunk<kAny>(r, s_ring + static_cast<size_t>(stage) * chunk_f4, c, m, gx,
                                    gy, gz, th);
           ++n_tested;
         }
         __syncwarp();   // every lane has read the stage
         if (lane == 0) mbar_arrive(&s_empty[stage]);
       }
-      if (++stage == stages) { stage = 0; ++round; }
+      if (++stage == kStages) { stage = 0; ++round; }
     }
     left |= gone;          // what phase A saw holds all the more by now
     if (all_left) break;   // the same in every thread
@@ -232,12 +221,7 @@ cudaError_t launch(const float* ro, const float* rd, const float* consts, const 
                    const float* lo, const float* hi, const int* chunk_list, const int* counts,
                    const float* entry, float* out_t, int* out_i, int* tested, int n_tiles,
                    int m_chunks, int c, Thresholds th, cudaStream_t s) {
-  const size_t stage_bytes = static_cast<size_t>(c) * kCoef * sizeof(float);
-  size_t stages = kMaxSmem / stage_bytes;
-  if (stages > RT_STREAM_STAGES) stages = RT_STREAM_STAGES;
-  if (stages > kMaxStages) stages = kMaxStages;
-  if (stages == 0) stages = 1;   // too big a chunk: the card refuses below
-  const size_t smem = stages * stage_bytes;
+  const size_t smem = kStages * static_cast<size_t>(c) * kCoef * sizeof(float);
   if (smem + 1024 > 48 * 1024) {   // with the kernel's static shared memory
     cudaError_t err = cudaFuncSetAttribute(sweep_stream_kernel<kAny>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -249,7 +233,7 @@ cudaError_t launch(const float* ro, const float* rd, const float* consts, const 
   }
   sweep_stream_kernel<kAny><<<n_tiles * kParts, kThreads, smem, s>>>(
       ro, rd, consts, meta, lo, hi, chunk_list, counts, entry, out_t, out_i, tested, m_chunks, c,
-      static_cast<int>(stages), th);
+      th);
   return cudaGetLastError();
 }
 

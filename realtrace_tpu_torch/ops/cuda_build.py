@@ -6,10 +6,6 @@ together) and linked into one shared library with a plain C interface,
 loaded with ``ctypes``. The build runs on first use, goes to ``csrc/build/``
 (keyed by a hash of the sources, headers and flags, so an edit rebuilds) and
 is cached for the process. A missing ``nvcc`` or a failed build raises.
-
-``load(defines=...)`` builds a variant with the sources' build-time switches
-set (``RT_*`` macros, see the notes at the top of each source); the package
-itself only ever loads the default build.
 """
 from __future__ import annotations
 
@@ -26,8 +22,8 @@ BUILD_DIR = CSRC / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_libs: dict = {}        # defines -> loaded library
-build_info: dict = {}   # {"library", "seconds", "log", "defines"} of this process's last load
+_lib: ctypes.CDLL | None = None
+build_info: dict = {}   # {"library", "seconds", "log"} of this process's load
 
 
 def _nvcc() -> str:
@@ -48,15 +44,14 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.rt_error_string.restype = ctypes.c_char_p
 
 
-def load(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
+def load() -> ctypes.CDLL:
     """The kernel library, built from the sources if this version is not
-    built yet. ``defines``: macro settings such as ``("RT_K1_SMEM=1",)``."""
-    defines = tuple(defines)
-    if defines in _libs:
-        return _libs[defines]
+    built yet."""
+    global _lib
+    if _lib is not None:
+        return _lib
     sources = sorted(CSRC.glob("*.cu"))
-    flags = (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
-    h = hashlib.sha256(" ".join(flags).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for s in sorted([*sources, *CSRC.glob("*.cuh")]):   # headers rebuild too
         h.update(s.name.encode())
         h.update(s.read_bytes())
@@ -67,7 +62,7 @@ def load(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         objs = [tmp.with_name(f"{tmp.name}.{s.stem}.o") for s in sources]
-        cmds = [[_nvcc(), *flags, "-c", "-o", str(o), str(s)] for s, o in zip(sources, objs)]
+        cmds = [[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(s)] for s, o in zip(sources, objs)]
         procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
                  for c in cmds]
         cmds.append([_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)])
@@ -85,9 +80,8 @@ def load(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
                 o.unlink(missing_ok=True)
     lib = ctypes.CDLL(str(out))
     _declare(lib)
-    build_info.update(library=str(out), seconds=time.perf_counter() - t0, log=log,
-                      defines=defines)
-    _libs[defines] = lib
+    build_info.update(library=str(out), seconds=time.perf_counter() - t0, log=log)
+    _lib = lib
     return lib
 
 

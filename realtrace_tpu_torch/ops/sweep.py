@@ -18,7 +18,7 @@ with ro' = ro - G, q' = rd x ro' (G the chunk centroid), e1 = A-B, e2 = A-C,
 n = e1 x e2, d = n . (A-G), c1 = (A-G) x e2, c2 = e1 x (A-G).
 
 ``sweep`` launches one of two CUDA kernels on CUDA tensors: the resident form
-(``csrc/sweep.cu``, every warp reads the table where it lies) or, for scenes
+(``csrc/sweep.cu``, every warp copies the chunks it tests) or, for scenes
 past ``RESIDENT_LIMIT`` or when asked, the streaming form
 (``csrc/sweep_stream.cu``, a block stages the listed chunks in a ring of
 shared memory). Both compute the same function; on CPU tensors ``sweep``
@@ -77,9 +77,11 @@ RESIDENT_LIMIT = 6 * 1024 * 1024
 MAX_DYNAMIC_SMEM = 232_448
 # bytes of it the streaming kernel keeps for its barriers and masks
 STREAM_SMEM_RESERVE = 1024
-# warps of one block of the resident kernel (RT_K1_WARPS of csrc/sweep.cu):
-# each stages the chunk it tests in a shared-memory slice of its own
+# warps of one block of the resident kernel (kWarps of csrc/sweep.cu): each
+# stages the chunk it tests in a shared-memory slice of its own
 RESIDENT_BLOCK_WARPS = 4
+# stages of the streaming kernel's ring (kStages of csrc/sweep_stream.cu)
+STREAM_STAGES = 2
 # List policy for CUDA tensors: with the chunk gate inside the kernels the
 # exact mask only shortens lists that the warps prune themselves, and on the
 # card it costs more than it saves (PERF.md, section 6), so CUDA queries
@@ -520,8 +522,8 @@ def sweep(ro: Tensor, rd: Tensor, consts: Tensor, meta: Tensor, chunk_list: Tens
     # both kernels read a chunk as 16-byte words: a chunk is 64*C bytes from the base
     if consts.data_ptr() % 16:
         raise ValueError("sweep: the kernels need consts aligned to 16 bytes")
-    # what a block needs at least: one ring stage (streaming), a slice a warp (resident)
-    need = c * NCOEF * 4 * (1 if stream else RESIDENT_BLOCK_WARPS)
+    # what a block needs: the ring's stages (streaming), a slice a warp (resident)
+    need = c * NCOEF * 4 * (STREAM_STAGES if stream else RESIDENT_BLOCK_WARPS)
     room = MAX_DYNAMIC_SMEM - (STREAM_SMEM_RESERVE if stream else 0)
     if need > room:
         raise ValueError(f"sweep: a block needs {need} bytes of shared memory for "

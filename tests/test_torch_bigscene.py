@@ -204,6 +204,11 @@ def test_blocked_twin_and_exit_positions(any_mode):
     assert torch.equal(t_blk, t_all) and torch.equal(i_blk, i_all) and torch.equal(t_b, tested)
     assert bool((tested <= counts[:, None]).all())
     assert int(tested.sum()) < int(counts.sum()) * sweep.WARPS      # some warp stopped early
+    # without the gate a live warp tests at least the first listed position
+    live_warp = (ro32[:, 0] != sweep.PARK_DISTANCE).reshape(6, sweep.WARPS, -1).any(dim=2)
+    assert bool(live_warp.any(dim=1).all()) and bool((counts > 0).any())
+    assert bool((tested >= (live_warp & (counts > 0)[:, None]).int()).all())
+    assert bool((tested.amax(dim=1) >= counts.clamp(max=1)).all())
     gated = torch.zeros_like(tested)
     t_g, i_g = sweep.sweep_reference(*args, tested=gated, lo=pack.lo, hi=pack.hi)
     assert bool((gated <= tested).all()) and int(gated.sum()) < int(tested.sum())
@@ -214,8 +219,11 @@ def test_blocked_twin_and_exit_positions(any_mode):
     full = torch.full_like(chunk_list, 0, dtype=torch.float32)
     t_f, i_f = sweep.sweep_reference(ro32, rd32, pack.consts, pack.meta, chunk_list, counts,
                                      full, 1e-7, 1e-4, any_mode)
-    if not any_mode:
-        assert torch.equal(t_f[live], t_all[live]) and torch.equal(i_f[live], i_all[live])
+    assert torch.equal(t_f[live], t_all[live]) and torch.equal(i_f[live], i_all[live])
+    # and so does cutting every list where the tile's last warp left it
+    t_cut, i_cut = sweep.sweep_reference(ro32, rd32, pack.consts, pack.meta, chunk_list,
+                                         tested.amax(dim=1), entry, 1e-7, 1e-4, any_mode)
+    assert torch.equal(t_cut[live], t_all[live]) and torch.equal(i_cut[live], i_all[live])
 
 
 def test_copy_offsets_follow_the_reference_walk():
