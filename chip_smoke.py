@@ -42,7 +42,20 @@ and the script exits 1 without printing a result:
    policy, as the main path gives it to the kernel, and holds the kernel's
    results and ``tested`` to the twin's bit for bit, so the bound rests on
    a verified count; the two kernels side by side on the
-   x2 and x8 scenes' primary queries. Information, not a benchmark.
+   x2 and x8 scenes' primary queries. Information, not a benchmark;
+6. backward and train step, with both launch counts set to 0 just before the
+   training path and read just after: ``image_grad`` of mesh_scene at
+   1920x1080, depth 3 (vertices, vertex colours, lights) launches exactly
+   the forward render's sweeps (the backward none); the same gradients
+   through the twin, a second backward and the backward without remat, each
+   equal to the first bit for bit, with the peak memory of both backward
+   designs; central finite differences in f64 through the kernel on
+   mesh_scene at 128x96 (one vertex coordinate, one vertex colour, one light
+   intensity, rtol 5e-3, visibility checked unchanged); five Adam steps at
+   1080p with the chunk re-sort every step (vertices, colours, materials,
+   lights; perturbed colours): the loss falls, every parameter stays finite;
+   timing with CUDA events (forward, value-and-grad and their ratio at both
+   framings, the train step, peak memory). Information, not a benchmark.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -338,6 +351,202 @@ def query_times(name, ro, rd, pack, cfg, stream, twin_reps, any_mode=False):
     return dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
 
+GRAD_FIELDS = ("tri_vertices", "tri_colors", "lights")                     # bench.py:199
+TRAIN_FIELDS = ("tri_vertices", "tri_colors", "tri_materials", "lights")   # bench.py:248
+FD_RTOL = 5e-3                                                             # tests/test_grad.py
+
+
+def grad_leaves(scene, camera, cfg, fields=GRAD_FIELDS):
+    """``image_grad`` (the mean pixel) as (loss, flat gradient tensors, peak
+    device bytes of the call)."""
+    import torch
+
+    from realtrace_tpu_torch.core.types import tensor_leaves
+    from realtrace_tpu_torch.diff.inverse import image_grad
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    loss, grads = image_grad(scene, camera, cfg, fields=fields)
+    torch.cuda.synchronize()
+    return loss, tensor_leaves(grads), torch.cuda.max_memory_allocated()
+
+
+def bit_equal(a, b) -> bool:
+    import torch
+
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def finite_differences(dev, cfg):
+    """Central differences of the mean pixel in f64 through the kernel on
+    mesh_scene at 128x96 against ``image_grad``: the vertex coordinate with
+    the largest gradient whose steps leave every query's result unchanged
+    (hits are decided in f32, so a step that moved one would measure a
+    visibility jump), a vertex colour and a light intensity."""
+    import dataclasses
+
+    import torch
+
+    from realtrace_tpu_torch.apps import scenes
+    from realtrace_tpu_torch.diff.inverse import apply_params, image_grad, scene_params
+    from realtrace_tpu_torch.ops import accel, sweep
+    from realtrace_tpu_torch.render.pipeline import render_buffer
+
+    f64 = torch.float64
+    scene, cam = scenes.mesh_scene(dtype=f64, device=dev)
+    scene = accel.with_chunks(scene, cfg)
+    camera = scenes.make_camera(cam, 128, 96, dtype=f64, device=dev)
+    _, grads = image_grad(scene, camera, cfg, fields=GRAD_FIELDS)
+    kernel = sweep.sweep
+
+    def loss_at(field, key, index, delta):
+        """The mean pixel with one scalar moved, and every query's indices."""
+        p = scene_params(scene, GRAD_FIELDS)
+        if key is None:
+            leaf = p[field].clone()
+            leaf[index] += delta
+            p[field] = leaf
+        else:
+            leaf = getattr(p[field], key).clone()
+            leaf[index] += delta
+            p[field] = dataclasses.replace(p[field], **{key: leaf})
+        hits = []
+
+        def recording(*a, **k):
+            out = kernel(*a, **k)
+            hits.append(out[1].clone())
+            return out
+
+        recording.launches = recording.stream_launches = 0   # the kernels count on it
+        sweep.sweep = recording
+        try:
+            with torch.no_grad():
+                value = float(torch.mean(render_buffer(apply_params(scene, p), camera, cfg)))
+        finally:
+            sweep.sweep = kernel
+        return value, hits
+
+    gv = grads["tri_vertices"]
+    order = torch.argsort(gv.abs().flatten(), descending=True)[:6].tolist()
+    vertex = [tuple(int(i) for i in torch.unravel_index(torch.tensor(o), gv.shape))
+              for o in order]
+    trials = ([("tri_vertices", None, v, 1e-6) for v in vertex]
+              + [("tri_colors", None, tuple(int(i) for i in torch.unravel_index(
+                  torch.argmax(grads["tri_colors"].abs()).cpu(), gv.shape)), 1e-5),
+                 ("lights", "intensity", (0, 1), 1e-5)])
+    _, base_hits = loss_at("lights", "intensity", (0, 1), 0.0)
+    done = set()
+    for field, key, index, eps in trials:
+        if field in done:
+            continue
+        (up, hits_up), (down, hits_down) = (loss_at(field, key, index, d) for d in (eps, -eps))
+        same = bit_equal(hits_up, base_hits) and bit_equal(hits_down, base_hits)
+        g = grads[field] if key is None else getattr(grads[field], key)
+        ad, fd = float(g[index]), (up - down) / (2 * eps)
+        name = f"{field}{'.' + key if key else ''}{list(index)}"
+        log(f"  finite difference 128x96 f64, {name}, step {eps:g}: autodiff {ad:.9e}, central "
+            f"difference {fd:.9e}, relative error {abs(ad - fd) / max(abs(fd), 1e-300):.2e}, "
+            f"visibility {'unchanged' if same else 'CHANGED (next candidate)'}")
+        if not same and field == "tri_vertices" and index != vertex[-1]:
+            continue
+        check(same and ad != 0.0 and abs(ad - fd) <= FD_RTOL * abs(fd) + 1e-12,
+              f"f64 finite difference through the kernel: {name} within rtol {FD_RTOL}")
+        done.add(field)
+
+
+def backward_and_train(mesh, cam, camera, cfg, forward_launches, card, dev):
+    """Phase 6. Returns the launches of each kernel on the training path
+    (``image_grad`` of the 1080p frame and five train steps)."""
+    import dataclasses
+
+    import torch
+
+    from realtrace_tpu_torch.apps import scenes
+    from realtrace_tpu_torch.core.types import tensor_leaves
+    from realtrace_tpu_torch.diff.inverse import image_grad, make_train_step
+    from realtrace_tpu_torch.ops import accel, sweep
+    from realtrace_tpu_torch.render.pipeline import render_buffer
+
+    gib = 1 << 30
+    sweep.sweep.launches = sweep.sweep.stream_launches = 0
+    loss, g_kernel, peak_remat = grad_leaves(mesh, camera, cfg)
+    path = [sweep.sweep.launches, sweep.sweep.stream_launches]
+    log(f"  image_grad {camera.width}x{camera.height} depth {cfg.max_depth} "
+        f"({', '.join(GRAD_FIELDS)}): loss "
+        f"{float(loss):.6e}, sweep.launches {path[0]}, sweep.stream_launches {path[1]} (the "
+        f"forward render: {forward_launches}), largest |g| "
+        f"{max(float(g.abs().max()) for g in g_kernel):.3e}")
+    check(path == [forward_launches, 0],
+          "forward and backward launch the forward render's sweeps (the backward none)")
+    check(all(bool(torch.isfinite(g).all()) for g in g_kernel)
+          and all(bool(g.abs().max() > 0) for g in g_kernel),
+          "every 1080p gradient is finite and each field takes one")
+
+    t0 = time.perf_counter()
+    with twin_sweep():
+        _, g_twin, _ = grad_leaves(mesh, camera, cfg)
+    log(f"  the same gradients through the twin: {time.perf_counter() - t0:.1f} s")
+    check(bit_equal(g_kernel, g_twin),
+          "kernel-path gradients equal twin-path gradients bit for bit")
+    del g_twin
+    _, g_again, _ = grad_leaves(mesh, camera, cfg)
+    check(bit_equal(g_kernel, g_again), "two backward passes give bit-identical gradients")
+    _, g_plain, peak_plain = grad_leaves(mesh, camera, dataclasses.replace(cfg, remat=False))
+    log(f"  peak device memory of image_grad {camera.width}x{camera.height}: remat "
+        f"{peak_remat / gib:.3f} GiB, without remat {peak_plain / gib:.3f} GiB ({card})")
+    check(bit_equal(g_kernel, g_plain), "remat and no remat give bit-identical gradients")
+    del g_again, g_plain
+
+    finite_differences(dev, cfg)
+
+    with torch.no_grad():
+        target = render_buffer(mesh, camera, cfg)
+    gen = torch.Generator().manual_seed(6)
+    noise = torch.randn(mesh.tri_colors.shape, generator=gen).to(dev, mesh.tri_colors.dtype)
+    # colours off by 0.3: at 0.1 the first steps' moves of the vertices and
+    # materials change more pixels than the colours recover (the loss rose)
+    wrong = dataclasses.replace(mesh, tri_colors=mesh.tri_colors + 0.3 * noise)
+    step, params, _ = make_train_step(wrong, camera, cfg, target, lr=1e-2, fields=TRAIN_FIELDS)
+    resorts = []
+    resort = accel.resort_chunks
+    accel.resort_chunks = lambda s, c: resorts.append(1) or resort(s, c)
+    sweep.sweep.launches = sweep.sweep.stream_launches = 0
+    try:
+        losses = [float(step()) for _ in range(5)]
+    finally:
+        accel.resort_chunks = resort
+    path[0] += sweep.sweep.launches
+    path[1] += sweep.sweep.stream_launches
+    log(f"  5 Adam steps {camera.width}x{camera.height} ({', '.join(TRAIN_FIELDS)}; perturbed "
+        f"colours): losses "
+        f"{', '.join(f'{x:.6e}' for x in losses)}; {len(resorts)} re-sorts, "
+        f"sweep.launches {sweep.sweep.launches}")
+    check(len(resorts) == 5 and losses[-1] < losses[0]
+          and all(bool(torch.isfinite(p).all()) for p in tensor_leaves(params)),
+          "the 1080p train step re-sorts every step, the loss falls, the parameters stay finite")
+    check(path[0] > 0, "the training path launched the resident kernel")
+
+    log(f"  timing (CUDA events; {card}):")
+    for name, position in (("serial", cam["position"]), ("close", CLOSE_POSITION)):
+        cam_f = scenes.make_camera(dict(cam, position=position), W, H, device=dev)
+
+        def forward():
+            with torch.no_grad():
+                render_buffer(mesh, cam_f, cfg)
+
+        fwd_ms = cuda_ms(forward, reps=3)
+        grad_ms = cuda_ms(lambda: image_grad(mesh, cam_f, cfg, fields=GRAD_FIELDS), reps=3)
+        peaks = [grad_leaves(mesh, cam_f, dataclasses.replace(cfg, remat=r))[2] / gib
+                 for r in (True, False)]
+        log(f"    {name} framing {position}: forward {fwd_ms:.2f} ms, value-and-grad "
+            f"{grad_ms:.2f} ms, ratio {grad_ms / fwd_ms:.3f}; peak {peaks[0]:.3f} GiB with remat, "
+            f"{peaks[1]:.3f} GiB without")
+    step_ms = cuda_ms(step, reps=3)
+    log(f"    train step {W}x{H} serial framing ({', '.join(TRAIN_FIELDS)}, Adam, re-sort): "
+        f"{step_ms:.2f} ms")
+    return path
+
+
 def main() -> int:
     import torch
 
@@ -533,6 +742,9 @@ def main() -> int:
     side_by_side("x2 scene", sweep.build_pack(accel.with_chunks(x2, cfg), cfg))
     side_by_side("x8 scene", pack8)
 
+    phase("6 backward and train step")
+    train_launches = backward_and_train(mesh, cam, camera, cfg, launches, card, dev)
+
     if failures:
         log(f"FAILED: {failures}")
         return 1
@@ -541,11 +753,11 @@ def main() -> int:
     log(json.dumps({"kernels": [
         {"name": "sweep", "route": "cuda", "source": "realtrace_tpu_torch/csrc/sweep.cu",
          "replaces": "realtrace_tpu/ops/pallas/trace.py:164", "launches": launches,
-         "max_abs_err": max(errs), **k1_row},
+         "train_launches": train_launches[0], "max_abs_err": max(errs), **k1_row},
         {"name": "sweep_stream", "route": "cuda",
          "source": "realtrace_tpu_torch/csrc/sweep_stream.cu",
          "replaces": "realtrace_tpu/ops/pallas/trace.py:228", "launches": stream_launches,
-         "max_abs_err": max(errs_stream), **k2_row}]}))
+         "train_launches": train_launches[1], "max_abs_err": max(errs_stream), **k2_row}]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

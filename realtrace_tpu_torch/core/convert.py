@@ -11,63 +11,109 @@ import dataclasses
 import numpy as np
 import torch
 
-from realtrace_tpu_torch.core.types import (MATERIAL_KEYS, Lights, Materials, RenderConfig, Scene,
-                                            default_device)
+from realtrace_tpu_torch.core.types import (DIFF_FIELDS, MATERIAL_KEYS, Lights, Materials,
+                                            RenderConfig, Scene, default_device, tensor_leaves)
 
 _MATERIAL_FIELDS = ("tri_materials", "sph_materials", "pln_materials", "cyl_materials")
 # JAX RenderConfig fields with no counterpart here: knobs that only steer TPU
 # layouts, precisions or static shapes (the capacity ladders among them: the
 # port compacts dynamically, so nothing overflows); none changes an image
 _DROPPED = ("shortlist", "ray_block", "matmul_precision", "occlusion_precision",
-            "compact_buckets", "deep_buckets", "branch_buckets", "remat",
-            "compact_levels")
+            "compact_buckets", "deep_buckets", "branch_buckets", "compact_levels")
 # JAX RenderConfig fields whose non-default values select paths not ported
 _FIXED = {"merge_queries": True, "shadow_any_mode": True}
 
 
-def scene_from_numpy(d: dict, dtype=None, device=None) -> Scene:
-    """Scene from a dict of arrays; ``dtype`` defaults to the vertices' dtype,
-    ``device`` to the card (``default_device``)."""
-    device = default_device(device)
-    if dtype is None:
-        dtype = torch.from_numpy(np.empty(0, np.asarray(d["tri_vertices"]).dtype)).dtype
+def _dtype_of(a) -> torch.dtype:
+    return torch.from_numpy(np.empty(0, np.asarray(a).dtype)).dtype
 
+
+def _fields_from_numpy(d: dict, names, dtype, device) -> dict:
+    """Scene fields from their numpy form: ``Materials`` and ``Lights`` from
+    dicts of arrays, every other field a tensor."""
     def t(a):
         return torch.as_tensor(np.array(a), dtype=dtype, device=device)
 
     kw = {}
-    for f in dataclasses.fields(Scene):
-        v = d.get(f.name)
-        if f.name in _MATERIAL_FIELDS:
-            kw[f.name] = Materials(**{k: t(v[k]) for k in MATERIAL_KEYS})
-        elif f.name == "lights":
-            kw[f.name] = Lights(position=t(v["position"]), intensity=t(v["intensity"]))
-        elif f.name == "tri_chunk_perm":
-            kw[f.name] = None if v is None else torch.as_tensor(
+    for name in names:
+        v = d.get(name)
+        if name in _MATERIAL_FIELDS:
+            kw[name] = Materials(**{k: t(v[k]) for k in MATERIAL_KEYS})
+        elif name == "lights":
+            kw[name] = Lights(position=t(v["position"]), intensity=t(v["intensity"]))
+        elif name == "tri_chunk_perm":
+            kw[name] = None if v is None else torch.as_tensor(
                 np.array(v), dtype=torch.int64, device=device)
         else:
-            kw[f.name] = t(v)
-    return Scene(**kw)
+            kw[name] = t(v)
+    return kw
 
 
-def scene_to_numpy(scene) -> dict:
-    """Inverse of ``scene_from_numpy``. Takes any object with the ``Scene``
-    field names whose leaves ``np.asarray`` accepts (a JAX ``Scene`` too)."""
+def _fields_to_numpy(obj, names) -> dict:
+    """Inverse of ``_fields_from_numpy`` for any object or dict with those
+    field names whose leaves ``np.asarray`` accepts (JAX values too)."""
     def a(x):
         if x is None:
             return None
         return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
     out = {}
-    for f in dataclasses.fields(Scene):
-        v = getattr(scene, f.name)
-        if f.name in _MATERIAL_FIELDS:
-            out[f.name] = {k: a(getattr(v, k)) for k in MATERIAL_KEYS}
-        elif f.name == "lights":
-            out[f.name] = {"position": a(v.position), "intensity": a(v.intensity)}
+    for name in names:
+        v = obj[name] if isinstance(obj, dict) else getattr(obj, name)
+        if name in _MATERIAL_FIELDS:
+            out[name] = {k: a(getattr(v, k)) for k in MATERIAL_KEYS}
+        elif name == "lights":
+            out[name] = {"position": a(v.position), "intensity": a(v.intensity)}
         else:
-            out[f.name] = a(v)
+            out[name] = a(v)
     return out
+
+
+def scene_from_numpy(d: dict, dtype=None, device=None) -> Scene:
+    """Scene from a dict of arrays; ``dtype`` defaults to the vertices' dtype,
+    ``device`` to the card (``default_device``)."""
+    dtype = _dtype_of(d["tri_vertices"]) if dtype is None else dtype
+    return Scene(**_fields_from_numpy(d, [f.name for f in dataclasses.fields(Scene)], dtype,
+                                      default_device(device)))
+
+
+def scene_to_numpy(scene) -> dict:
+    """Inverse of ``scene_from_numpy``. Takes any object with the ``Scene``
+    field names whose leaves ``np.asarray`` accepts (a JAX ``Scene`` too)."""
+    return _fields_to_numpy(scene, [f.name for f in dataclasses.fields(Scene)])
+
+
+def params_from_numpy(d: dict, dtype=None, device=None) -> dict:
+    """A parameter dict (the ``diff.inverse.DIFF_FIELDS`` sub-dict of a scene:
+    tensors, ``Materials``, ``Lights``) from its numpy form, the layout of
+    ``scene_to_numpy``; ``dtype`` defaults to the first array's."""
+    if dtype is None:
+        first = next(iter(d.values()))
+        dtype = _dtype_of(next(iter(first.values())) if isinstance(first, dict) else first)
+    return _fields_from_numpy(d, list(d), dtype, default_device(device))
+
+
+def params_to_numpy(params) -> dict:
+    """Inverse of ``params_from_numpy``; takes the JAX package's parameter
+    dicts (and its optax moments, which share their layout) too."""
+    return _fields_to_numpy(params, list(params))
+
+
+def adam_state_from_numpy(mu: dict, nu: dict, count) -> dict:
+    """``torch.optim.Adam`` state from optax's ``ScaleByAdamState`` (``mu``
+    and ``nu`` as ``params_to_numpy`` gives them, ``count`` the step count):
+    the ``"state"`` entry of ``Adam.state_dict()``, keyed by leaf position in
+    the order of the port's parameter dicts (``DIFF_FIELDS`` order; JAX
+    sorts its dict keys). Load it with ``opt.load_state_dict({"state": ...,
+    "param_groups": opt.state_dict()["param_groups"]})`` to continue a JAX
+    run in the port."""
+    def leaves(d):
+        return tensor_leaves(params_from_numpy({f: d[f] for f in DIFF_FIELDS if f in d},
+                                               device="cpu"))
+
+    step = torch.tensor(float(np.asarray(count)), dtype=torch.float32)
+    return {i: {"step": step.clone(), "exp_avg": a, "exp_avg_sq": b}
+            for i, (a, b) in enumerate(zip(leaves(mu), leaves(nu)))}
 
 
 def config_from_dict(d: dict) -> RenderConfig:

@@ -227,6 +227,39 @@ class SceneBuilder:
         )
 
 
+# the scene fields that take gradients (every float field; the chunk
+# permutation is topology), in the order parameter dicts keep them
+DIFF_FIELDS = (
+    "tri_vertices", "tri_colors", "tri_materials",
+    "sph_center", "sph_radius", "sph_color", "sph_materials",
+    "pln_corners", "pln_color", "pln_materials",
+    "cyl_center", "cyl_up", "cyl_radius", "cyl_color", "cyl_materials",
+    "lights", "ambient", "background",
+)
+
+
+def tensor_leaves(x) -> list[Tensor]:
+    """The tensors of a parameter tree, in a fixed order: a tensor, a
+    ``Materials`` or ``Lights`` (fields in declaration order), or a dict of
+    those (in the dict's order)."""
+    if isinstance(x, dict):
+        return [t for v in x.values() for t in tensor_leaves(v)]
+    if dataclasses.is_dataclass(x):
+        return [getattr(x, f.name) for f in dataclasses.fields(x)]
+    return [x]
+
+
+def map_tensors(fn, x):
+    """The parameter tree ``x`` with every tensor replaced by ``fn(tensor)``
+    (the same structure: dicts, ``Materials``, ``Lights``)."""
+    if isinstance(x, dict):
+        return {k: map_tensors(fn, v) for k, v in x.items()}
+    if dataclasses.is_dataclass(x):
+        return dataclasses.replace(x, **{f.name: fn(getattr(x, f.name))
+                                         for f in dataclasses.fields(x)})
+    return fn(x)
+
+
 ACCELS = ("bruteforce", "sweep")
 
 
@@ -255,6 +288,11 @@ class RenderConfig:
     exact_mask_rays: int = 1 << 19
     # force the exact mask for every secondary (shadow + child) query
     exact_mask_secondary: bool = False
+    # rematerialised backward: each level's differentiable shading runs
+    # under ``torch.utils.checkpoint`` and is recomputed in the backward,
+    # which keeps only the level's inputs and its query results (never re-runs
+    # a query); no effect on renders that need no gradient
+    remat: bool = True
 
     def __post_init__(self):
         if self.accel not in ACCELS:

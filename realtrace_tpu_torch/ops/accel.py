@@ -97,7 +97,25 @@ def chunk_perm_split(tri_vertices: Tensor, chunk_size: int) -> Tensor:
 
 
 def with_chunks(scene: Scene, cfg: RenderConfig) -> Scene:
-    """Attach the median-split chunk permutation to the scene."""
+    """Attach the median-split chunk permutation, built from the scene's
+    current (detached) vertices, to the scene."""
     perm = chunk_perm_split(scene.tri_vertices,
                             effective_chunk_size(cfg, scene.n_triangles))
     return dataclasses.replace(scene, tri_chunk_perm=perm)
+
+
+# The JAX package's name for the per-step rebuild of a train loop whose
+# vertices move (``diff.inverse.make_train_step``): the ordering, unlike the
+# per-frame chunk boxes, goes stale as the geometry moves.
+resort_chunks = with_chunks
+
+
+def chunk_volume(scene: Scene, cfg: RenderConfig) -> Tensor:
+    """Staleness metric: the summed volume of the chunk boxes under the
+    scene's current ordering; it grows as optimisation moves vertices away
+    from the ordering's locality, and falls back after a re-sort."""
+    if scene.tri_chunk_perm is None:
+        raise ValueError("scene has no chunk permutation; call accel.with_chunks(scene, cfg)")
+    c = effective_chunk_size(cfg, scene.n_triangles)
+    tvc = scene.tri_vertices.detach()[scene.tri_chunk_perm].reshape(-1, c, 3, 3)
+    return torch.sum(torch.prod(tvc.amax(dim=(1, 2)) - tvc.amin(dim=(1, 2)), dim=-1))

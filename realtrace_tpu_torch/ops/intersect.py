@@ -196,12 +196,34 @@ def _closer_root(r1: Tensor, r2: Tensor, t_fwd: Tensor) -> Tensor:
     return torch.where(torch.abs(r1.detach() - t_fwd) < torch.abs(r2.detach() - t_fwd), r1, r2)
 
 
+# a family of at most this many primitives gathers by select-and-sum (``_rows``)
+FEW_ROWS = 8
+
+
+def _rows(x: Tensor, m: Tensor, idx: Tensor) -> Tensor:
+    """``x[idx]`` on the lanes a family owns (``m``); the other lanes get rows
+    whose values are discarded. The gather's backward is a scatter-add, which
+    PyTorch runs on CUDA as a sort followed by a serial sum over each row's
+    duplicates (deterministic, and slow for a long run). So no row is repeated
+    by a whole wavefront: unowned lanes take row ``lane mod n``, and a family
+    of at most ``FEW_ROWS`` primitives, whose rows every lane repeats, gathers
+    as a sum of masked rows, whose backward is a sum over the lanes."""
+    n = x.shape[0]
+    if n > FEW_ROWS:
+        return x[torch.where(m, idx, torch.arange(idx.shape[0], device=idx.device) % n)]
+    own = torch.where(m, idx, -1).reshape((-1,) + (1,) * (x.dim() - 1))
+    out = (own == 0).to(x.dtype) * x[0]
+    for k in range(1, n):
+        out = out + (own == k).to(x.dtype) * x[k]
+    return out
+
+
 def hit_attributes(scene: Scene, ro: Tensor, rd: Tensor, t_fwd: Tensor, fam: Tensor,
                    idx: Tensor, cfg: RenderConfig, pack=None) -> Hit:
     """Differentiable attribute recomputation for a selected hit
     ``(t_fwd, fam, idx)`` from ``closest_query``, read from the original
-    scene tensors. Each family gathers at ``idx`` on its own lanes and at 0
-    elsewhere (the lanes it does not own are discarded)."""
+    scene tensors. Each family gathers at ``idx`` on its own lanes (``_rows``;
+    the lanes it does not own are discarded)."""
     r = ro.shape[0]
     valid = fam != FAM_NONE
     zero3 = ro.new_zeros((r, 3))
@@ -222,12 +244,12 @@ def hit_attributes(scene: Scene, ro: Tensor, rd: Tensor, t_fwd: Tensor, fam: Ten
             # in f32/f64 below 2^24 triangles); no per-ray permutation gather
             perm = pack.perm if pack is not None else scene.tri_chunk_perm
             table = torch.cat([table[perm], perm.to(table.dtype)[:, None]], dim=1)
-        g = table[torch.where(m, idx, 0)]
+        g = _rows(table, m, idx).unbind(1)   # one backward node for the columns
         if cfg.accel == "sweep":
-            index_out = torch.where(m, g[:, 24].to(idx.dtype), index_out)
-        ax, ay, az = g[:, 0], g[:, 1], g[:, 2]
-        bx, by, bz = g[:, 3], g[:, 4], g[:, 5]
-        cx, cy, cz = g[:, 6], g[:, 7], g[:, 8]
+            index_out = torch.where(m, g[24].to(idx.dtype), index_out)
+        ax, ay, az = g[0], g[1], g[2]
+        bx, by, bz = g[3], g[4], g[5]
+        cx, cy, cz = g[6], g[7], g[8]
         rx, ry, rz = rd[:, 0], rd[:, 1], rd[:, 2]
         ox, oy, oz = ro[:, 0], ro[:, 1], ro[:, 2]
         e1x, e1y, e1z = ax - bx, ay - by, az - bz
@@ -244,20 +266,19 @@ def hit_attributes(scene: Scene, ro: Tensor, rd: Tensor, t_fwd: Tensor, fam: Ten
         gamma = (rx * (e1y * sz - e1z * sy) + ry * (e1z * sx - e1x * sz)
                  + rz * (e1x * sy - e1y * sx)) / det_safe
         alpha = 1.0 - beta - gamma
-        col = torch.stack([alpha * g[:, 9] + beta * g[:, 12] + gamma * g[:, 15],
-                           alpha * g[:, 10] + beta * g[:, 13] + gamma * g[:, 16],
-                           alpha * g[:, 11] + beta * g[:, 14] + gamma * g[:, 17]], dim=1)
+        col = torch.stack([alpha * g[9] + beta * g[12] + gamma * g[15],
+                           alpha * g[10] + beta * g[13] + gamma * g[16],
+                           alpha * g[11] + beta * g[14] + gamma * g[17]], dim=1)
         t_d = _sel(m, tt, t_d)
         normal = _sel(m, torch.stack([nx, ny, nz], dim=1), normal)
         color = _sel(m, col, color)
         for j, k in enumerate(MATERIAL_KEYS):
-            mats[k] = _sel(m, g[:, 18 + j], mats[k])
+            mats[k] = _sel(m, g[18 + j], mats[k])
 
     if scene.n_spheres:
         m = valid & (fam == FAM_SPH)
-        i = torch.where(m, idx, 0)
-        ctr = scene.sph_center[i]
-        rad = scene.sph_radius[i]
+        ctr = _rows(scene.sph_center, m, idx)
+        rad = _rows(scene.sph_radius, m, idx)
         cv = ro - ctr
         b2 = 2.0 * vec.dot(rd, cv)
         c2 = vec.dot(cv, cv) - rad * rad
@@ -269,14 +290,13 @@ def hit_attributes(scene: Scene, ro: Tensor, rd: Tensor, t_fwd: Tensor, fam: Ten
         pos = ro + tt[:, None] * rd
         t_d = _sel(m, tt, t_d)
         normal = _sel(m, pos - ctr, normal)     # Sphere::getNormalAtPosition
-        color = _sel(m, scene.sph_color[i], color)
+        color = _sel(m, _rows(scene.sph_color, m, idx), color)
         for k in mats:
-            mats[k] = _sel(m, getattr(scene.sph_materials, k)[i], mats[k])
+            mats[k] = _sel(m, _rows(getattr(scene.sph_materials, k), m, idx), mats[k])
 
     if scene.n_planes:
         m = valid & (fam == FAM_PLN)
-        i = torch.where(m, idx, 0)
-        cr = scene.pln_corners[i]
+        cr = _rows(scene.pln_corners, m, idx)
         p1, p2, p3 = cr[:, 0], cr[:, 1], cr[:, 2]
         nrm = vec.cross(p3 - p1, p2 - p1)       # Plane ctor normal, Serial/plane.h:24
         det = vec.dot(rd, nrm)
@@ -284,14 +304,14 @@ def hit_attributes(scene: Scene, ro: Tensor, rd: Tensor, t_fwd: Tensor, fam: Ten
         tt = vec.dot(p1 - ro, nrm) / det_safe
         t_d = _sel(m, tt, t_d)
         normal = _sel(m, nrm, normal)
-        color = _sel(m, scene.pln_color[i], color)
+        color = _sel(m, _rows(scene.pln_color, m, idx), color)
         for k in mats:
-            mats[k] = _sel(m, getattr(scene.pln_materials, k)[i], mats[k])
+            mats[k] = _sel(m, _rows(getattr(scene.pln_materials, k), m, idx), mats[k])
 
     if scene.n_cylinders:
         m = valid & (fam == FAM_CYL)
-        i = torch.where(m, idx, 0)
-        ctr, up, rad = scene.cyl_center[i], scene.cyl_up[i], scene.cyl_radius[i]
+        ctr, up = _rows(scene.cyl_center, m, idx), _rows(scene.cyl_up, m, idx)
+        rad = _rows(scene.cyl_radius, m, idx)
         tmp1 = rd - vec.dot(rd, up)[:, None] * up
         oc = ro - ctr
         tmp2 = oc - vec.dot(oc, up)[:, None] * up
@@ -310,9 +330,9 @@ def hit_attributes(scene: Scene, ro: Tensor, rd: Tensor, t_fwd: Tensor, fam: Ten
         proj = vec.dot(pc, up) / torch.clamp(vec.dot(up, up), min=1e-30)
         t_d = _sel(m, tt, t_d)
         normal = _sel(m, pc - proj[:, None] * up, normal)
-        color = _sel(m, scene.cyl_color[i], color)
+        color = _sel(m, _rows(scene.cyl_color, m, idx), color)
         for k in mats:
-            mats[k] = _sel(m, getattr(scene.cyl_materials, k)[i], mats[k])
+            mats[k] = _sel(m, _rows(getattr(scene.cyl_materials, k), m, idx), mats[k])
 
     t_final = torch.where(valid, t_d, torch.full_like(t_d, BIG))
     position = ro + t_final[:, None] * rd

@@ -1,8 +1,10 @@
 """The sweep's two CUDA kernels (resident and streaming) on the card: against
 their twin and against each other, and renders on the card against the same
-renders on the CPU. The kernels have no CPU mode, so every case here skips
-without a CUDA card; this file imports neither the JAX
-package nor flax, so it runs where only the port is installed:
+renders on the CPU, and gradients through the kernel (equal to the twin's,
+no launch in the backward, bit-identical twice). The kernels have no CPU
+mode, so every case here skips without a CUDA card; this file imports
+neither the JAX package nor flax, so it runs where only the port is
+installed:
 
     python -m pytest tests/test_torch_cuda.py -q
 """
@@ -244,3 +246,55 @@ def test_pack_moves_with_scene(cuda):
         if isinstance(a, torch.Tensor):
             assert a.device.type == "cuda"
             assert torch.equal(a.cpu(), getattr(on_cpu, f.name))
+
+
+GRAD_FIELDS = ("tri_vertices", "tri_colors", "lights")
+
+
+def card_grads(scene, camera, cfg=CFG):
+    from realtrace_tpu_torch.core.types import tensor_leaves
+    from realtrace_tpu_torch.diff.inverse import image_grad
+
+    return tensor_leaves(image_grad(scene, camera, cfg, fields=GRAD_FIELDS)[1])
+
+
+@pytest.fixture
+def mesh_on_card(cuda):
+    scene, cam = scenes.mesh_scene(detail=0.36, device=cuda)
+    return accel.with_chunks(scene, CFG), scenes.make_camera(cam, 192, 128, device=cuda)
+
+
+def test_grads_through_kernel_equal_grads_through_twin(mesh_on_card, monkeypatch):
+    """The hits are bit-equal, so everything after them is the same arithmetic
+    on the card: the gradients are too."""
+    scene, camera = mesh_on_card
+    kernel = card_grads(scene, camera)
+    monkeypatch.setattr(sweep, "sweep",
+                        lambda *a, stream=False, **k: sweep.sweep_reference(*a, **k))
+    twin = card_grads(scene, camera)
+    assert all(torch.equal(a, b) for a, b in zip(kernel, twin))
+    assert all(bool(g.abs().max() > 0) for g in kernel)
+
+
+def test_backward_launches_no_kernel(mesh_on_card):
+    from realtrace_tpu_torch.diff.inverse import apply_params, scene_params
+    from realtrace_tpu_torch.render.pipeline import render_buffer
+
+    scene, camera = mesh_on_card
+    params = {f: x.detach().requires_grad_(True)
+              for f, x in scene_params(scene, ("tri_vertices", "tri_colors")).items()}
+    before = sweep.sweep.launches
+    loss = torch.mean(render_buffer(apply_params(scene, params), camera, CFG))
+    forward = sweep.sweep.launches
+    loss.backward()
+    torch.cuda.synchronize()
+    assert forward > before and sweep.sweep.launches == forward
+    assert bool(params["tri_vertices"].grad.abs().max() > 0)
+
+
+def test_backward_is_bit_identical_twice_and_with_or_without_remat(mesh_on_card):
+    scene, camera = mesh_on_card
+    a = card_grads(scene, camera)
+    b = card_grads(scene, camera)
+    c = card_grads(scene, camera, dataclasses.replace(CFG, remat=False))
+    assert all(torch.equal(x, y) and torch.equal(x, z) for x, y, z in zip(a, b, c))
