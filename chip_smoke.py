@@ -55,7 +55,24 @@ and the script exits 1 without printing a result:
    1080p with the chunk re-sort every step (vertices, colours, materials,
    lights; perturbed colours): the loss falls, every parameter stays finite;
    timing with CUDA events (forward, value-and-grad and their ratio at both
-   framings, the train step, peak memory). Information, not a benchmark.
+   framings, the train step, peak memory). Information, not a benchmark;
+7. progressive, sharded and apps, each path with both launch counts set to 0
+   just before and read just after: ProgressiveRenderer on mesh_scene and on
+   duplicated_mesh_scene(8) at 1920x1080, depth 3, band 120 (9 bands), each
+   against render_with_stats (0 pixels over 1e-4; pixels not bit-equal are
+   counted), each band launching the frame's kernel at most as often as the
+   frame, a run saved after band 4 and resumed in a fresh renderer equal to
+   the uninterrupted one bit for bit; the two-rank smoke
+   (``python -m realtrace_tpu_torch.parallel.smoke``: gloo on the card, a
+   (1, 2) grid, mesh_scene at 1080p: the gathered image against the single
+   render, gradients bit-identical on both ranks and within 1e-4 of
+   make_train_step's, 3 Adam steps, K1 on each rank, no rebuild of the
+   kernels); a world-size-1 NCCL group (sharded_render, one all_reduce);
+   run_flythrough (mesh_scene, 512x512, 24 frames; its frame_bracket labels
+   in one trace_capture); the viewer's batched script against its per-frame
+   script (256x128, equal last frame); flashlight and stability on the card
+   against the CPU; mesh_scene's triangles through an OBJ file, native parser
+   against Python parser, and parallel_obj_scene rendered at 1080p.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -349,6 +366,227 @@ def query_times(name, ro, rd, pack, cfg, stream, twin_reps, any_mode=False):
         f"bytes {byte_ms:.3f} ms for {nbytes} bytes): the kernel runs at "
         f"{bound_ms / k_ms:.3f} of the bound")
     return dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+
+def progressive_run(name, scene, camera, cfg, band, frame, card):
+    """Phase 7: the progressive renderer over the whole frame, band by band,
+    with both launch counts zeroed before and read after each band; the image
+    against ``frame`` (the render_with_stats image and its (K1, K2) launches);
+    save after band 4 and resume in a fresh renderer. Returns (K1, K2)
+    launches of the run."""
+    import tempfile
+
+    import torch
+
+    from realtrace_tpu_torch.ops import sweep
+    from realtrace_tpu_torch.render.progressive import ProgressiveRenderer
+
+    img_full, full_k = frame
+    pr = ProgressiveRenderer(scene, camera, cfg, band=band)
+    bands, times = [], []
+    while not pr.done:
+        torch.cuda.synchronize()
+        sweep.sweep.launches = sweep.sweep.stream_launches = 0
+        t0 = time.perf_counter()
+        pr.step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        bands.append((sweep.sweep.launches, sweep.sweep.stream_launches))
+    img = pr.image()
+    k1, k2 = (sum(b[i] for b in bands) for i in (0, 1))
+    err = (img - img_full).abs().amax(-1)
+    over = int((err > IMAGE_TOL).sum())
+    unequal = int((img != img_full).any(-1).sum())
+    total_s = sum(times) / 1e3
+    log(f"  progressive {name} {camera.width}x{camera.height} depth {cfg.max_depth}, "
+        f"{len(bands)} bands of {band}: {over} pixels > {IMAGE_TOL}, {unequal} not bit-equal, "
+        f"max {float(err.max()):.3e}; launches per band (K1, K2) {bands} (frame {full_k}); "
+        f"ms per band mean {sum(times) / len(times):.2f} (min {min(times):.2f}, max "
+        f"{max(times):.2f}; the first band includes warm-up), {pr.rays} rays, "
+        f"{pr.rays / total_s / 1e6:.2f} Mrays/s ({card})")
+    check(over == 0, f"progressive {name}: the bands equal the full render within {IMAGE_TOL}")
+    frame_kernel = 0 if full_k[0] else 1     # the kernel the frame launches
+    check(all(b[frame_kernel] <= full_k[frame_kernel] and b[1 - frame_kernel] == 0
+              for b in bands) and (k1, k2)[frame_kernel] > 0,
+          f"progressive {name}: every band launches only the frame's kernel, at most as often "
+          f"as the frame, and the run launches it")
+    with tempfile.TemporaryDirectory() as tmp:
+        a = ProgressiveRenderer(scene, camera, cfg, band=band)
+        for _ in range(4):
+            a.step()
+        a.save(Path(tmp) / "state.npz")
+        b = ProgressiveRenderer(scene, camera, cfg, band=band)
+        b.load(Path(tmp) / "state.npz")
+        resumed = b.render_all()
+    check(b.cursor == camera.height and torch.equal(resumed, img),
+          f"progressive {name}: saved after band 4 and resumed equals the uninterrupted run "
+          f"bit for bit")
+    return k1, k2
+
+
+def sharded_runs(mesh, camera, cfg, img_full, card):
+    """Phase 7: the two-rank smoke (gloo on the card) and a world-size-1 NCCL
+    group. Returns the K1 launches of rank 0's sharded frame."""
+    import socket
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from realtrace_tpu_torch.parallel import mesh as pmesh
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cmd = [sys.executable, "-m", "realtrace_tpu_torch.parallel.smoke", "--device", "cuda",
+               "--width", str(W), "--height", str(H), "--depth", str(DEPTH), "--steps", "3",
+               "--timeout", "300", "--out", str(Path(tmp) / "out.npz")]
+        t0 = time.perf_counter()
+        try:
+            run = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=420)
+            rc, out, err = run.returncode, run.stdout, run.stderr
+        except subprocess.TimeoutExpired as e:
+            rc, out, err = "timeout", str(e.stdout or ""), str(e.stderr or "")
+        wall = time.perf_counter() - t0
+    for line in out.splitlines():
+        log(f"  | {line}")
+    lines = out.strip().splitlines()
+    ok = rc == 0 and bool(lines) and lines[-1] == "OK"
+    if not ok:
+        log(f"  smoke stderr (tail): {err[-3000:]}")
+    check(ok, f"two-rank smoke (gloo on the card, 1x2 grid, {W}x{H}) passed all its checks, "
+          f"exit {rc}, {wall:.1f} s")
+    summary = {}
+    if ok:
+        summary = json.loads(lines[-2])
+        log(f"  two-rank smoke: launcher's reference (single frame and train step, while the "
+            f"workers start) {summary['reference_s']:.2f} s, workers' group init "
+            f"{summary['worker_init_s']} s, set-up {summary['worker_setup_s']} s, wait "
+            f"{summary['worker_wait_s']} s; single frame {summary['single_render_s']:.3f} s, "
+            f"sharded frame {summary['sharded_render_s']} s, train steps {summary['step_s']} s, K1 "
+            f"{summary['k1']}, K2 {summary['k2']}, losses {summary['losses']}, gradient "
+            f"errors {summary['grad_rel_err']} ({card})")
+        check(all(k > 0 for k in summary["k1"]) and not any(summary["k2"]),
+              "each rank launched K1 and not K2 for its tile")
+        check(not any(summary["rebuilt"]), "both ranks loaded the kernel library phase 2 built")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    pmesh.init_distributed(f"127.0.0.1:{port}", 1, 0, backend="nccl")
+    try:
+        m1 = pmesh.make_mesh()
+        img = pmesh.sharded_render(pmesh.replicate_scene(mesh, m1), camera, cfg, m1)
+        x = torch.arange(8.0, device=camera.position.device)
+        dist.all_reduce(x)
+        torch.cuda.synchronize()
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    log(f"  world-size-1 {backend} group: sharded_render and one all_reduce in "
+        f"{time.perf_counter() - t0:.2f} s")
+    check(backend == "nccl" and torch.equal(img, img_full)
+          and torch.equal(x.cpu(), torch.arange(8.0)),
+          "a world-size-1 NCCL group renders the frame and all-reduces")
+    return summary.get("k1", [0])[0]
+
+
+def apps_runs(mesh, cam, cfg, dev, card):
+    """Phase 7: flythrough, viewer, samples, OBJ parsers and the CUDA app's
+    scene. Returns the K1 launches of the flythrough and the OBJ frame."""
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from realtrace_tpu_torch.apps import samples, scenes, viewer
+    from realtrace_tpu_torch.apps.flythrough import run_flythrough
+    from realtrace_tpu_torch.io import native_obj, obj
+    from realtrace_tpu_torch.ops import accel, sweep
+    from realtrace_tpu_torch.render.camera import InteractiveCamera
+    from realtrace_tpu_torch.render.pipeline import render_with_stats
+    from realtrace_tpu_torch.utils.profiling import trace_capture
+
+    def orbit(w, h):
+        return InteractiveCamera(radius=85.0, pitch=0.6, resolution=(w, h))
+
+    frames = 24
+    sweep.sweep.launches = sweep.sweep.stream_launches = 0
+    imgs, fps = run_flythrough(mesh, orbit(512, 512), cfg, frames=frames)
+    fly_k = (sweep.sweep.launches, sweep.sweep.stream_launches)
+    log(f"  flythrough mesh_scene 512x512 depth {cfg.max_depth}, {frames} frames: {fps:.2f} fps "
+        f"(first frame left out), launches per frame K1 {fly_k[0] / frames:.2f}, K2 "
+        f"{fly_k[1] / frames:.2f} ({card})")
+    check(len(imgs) == frames and all(bool(torch.isfinite(x).all()) for x in imgs)
+          and fly_k[0] > 0 and fly_k[1] == 0, "the flythrough renders its frames through K1")
+    with tempfile.TemporaryDirectory() as tmp:
+        with trace_capture(tmp) as prof:
+            run_flythrough(mesh, orbit(512, 512), cfg, frames=3)
+        names = {e.name for e in prof.events()}
+        busy_ms = sum(getattr(e, "self_device_time_total", 0.0)
+                      for e in prof.key_averages()) / 1e3
+        trace_ok = (Path(tmp) / "trace.json").exists()
+    check(trace_ok and all(f"flythrough_frame_{i}" in names for i in range(3)),
+          "trace_capture holds every frame_bracket label of a 3-frame flythrough")
+    log(f"  trace_capture of 3 flythrough frames: {len(names)} event names, device busy "
+        f"{busy_ms:.1f} ms (the sum of the kernels' own device time)")
+
+    keys = "\x1b[C" * 6 + "\x1b[A\x1b[A" + "zz" + "\x1b[D" * 6
+    views = []
+    for batched in (False, True):
+        scene, orbit0 = viewer._build("mesh", cfg, 256, 128, dev)
+        v = viewer.Viewer(scene, orbit0, cfg, out=io.StringIO())
+        if batched:
+            v.run_script_batched(keys, batch=8)
+        else:
+            v.run_script(keys)
+        views.append(v)
+    log(f"  viewer script of {len(keys.replace(chr(27) + '[', ''))} keys at 256x128: per frame "
+        f"{views[0].fps:.1f} FPS (moving average), {views[0].mrays:.2f} Mrays/s; batched 8 "
+        f"{views[1].fps:.1f} FPS, {views[1].mrays:.2f} Mrays/s over {views[1].frames} frames "
+        f"({card})")
+    check(np.array_equal(views[0].last_img, views[1].last_img) and views[1].frames == 16,
+          "the viewer's batched script ends on the per-frame script's last frame")
+
+    flash = [samples.flashlight(1920, 1080, (960.5, 540.25), device=d) for d in (dev, "cpu")]
+    stab = [[samples.stability(128, 128, 0.1, k, device=d) for d in (dev, "cpu")]
+            for k in (0, 1, 2)]
+    check(torch.equal(flash[0].cpu(), flash[1]) and all(torch.equal(a.cpu(), b)
+                                                        for a, b in stab),
+          "flashlight (1920x1080) and stability (128x128, three systems) on the card equal "
+          "the CPU's")
+
+    tv, _ = scenes.mesh_arrays()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "mesh.obj"
+        verts = tv.reshape(-1, 3)
+        path.write_text("".join(f"v {x:.17g} {y:.17g} {z:.17g}\n" for x, y, z in verts)
+                        + "".join(f"f {3 * k + 1} {3 * k + 2} {3 * k + 3}\n"
+                                  for k in range(len(tv))))
+        native = obj.parse_obj(path)
+        check(native_obj._lib is not None, "the native OBJ parser built and loaded")
+        saved = obj._try_native
+        obj._try_native = lambda p: None
+        try:
+            python = obj.parse_obj(path)
+        finally:
+            obj._try_native = saved
+        check(all(np.array_equal(getattr(native, f), getattr(python, f))
+                  for f in ("vertices", "tri_vertex_idx", "tri_uv_idx", "uvs"))
+              and np.array_equal(native.triangles, tv),
+              f"native and Python OBJ parsers agree on mesh_scene's {len(tv)} triangles")
+        par, pcam = scenes.parallel_obj_scene(path, device=dev)
+    par = accel.with_chunks(par, cfg)
+    sweep.sweep.launches = sweep.sweep.stream_launches = 0
+    img, nrays = render_with_stats(par, scenes.make_camera(pcam, W, H, device=dev), cfg)
+    torch.cuda.synchronize()
+    obj_k = (sweep.sweep.launches, sweep.sweep.stream_launches)
+    bg = par.background.to(img.dtype)
+    covered = float((img - bg).abs().amax(-1).gt(1e-3).float().mean())
+    log(f"  parallel_obj_scene ({par.n_triangles} triangles) {W}x{H}: {nrays} rays, launches "
+        f"K1 {obj_k[0]}, K2 {obj_k[1]}, covers {covered:.3f} of the frame")
+    check(bool(torch.isfinite(img).all()) and obj_k[0] > 0 and 0.01 < covered < 0.99,
+          "parallel_obj_scene renders at 1080p through K1")
+    return fly_k[0] + obj_k[0]
 
 
 GRAD_FIELDS = ("tri_vertices", "tri_colors", "lights")                     # bench.py:199
@@ -745,6 +983,24 @@ def main() -> int:
     phase("6 backward and train step")
     train_launches = backward_and_train(mesh, cam, camera, cfg, launches, card, dev)
 
+    phase("7 progressive, sharded and apps")
+    t7 = time.perf_counter()
+    sweep.sweep.launches = sweep.sweep.stream_launches = 0
+    img_m, _ = render_with_stats(mesh, camera, cfg)
+    frame_m = (img_m, (sweep.sweep.launches, sweep.sweep.stream_launches))
+    p7 = list(progressive_run("mesh_scene", mesh, camera, cfg, 120, frame_m, card))
+    x8, _ = scenes.duplicated_mesh_scene(8, device=dev)
+    x8 = accel.with_chunks(x8, cfg)
+    sweep.sweep.launches = sweep.sweep.stream_launches = 0
+    img_8, _ = render_with_stats(x8, camera, cfg)
+    k = progressive_run("duplicated_mesh_scene(8)", x8, camera, cfg, 120,
+                        (img_8, (sweep.sweep.launches, sweep.sweep.stream_launches)), card)
+    p7 = [p7[0] + k[0], p7[1] + k[1]]
+    del x8, img_8
+    p7[0] += sharded_runs(mesh, camera, cfg, img_m, card)
+    p7[0] += apps_runs(mesh, cam, cfg, dev, card)
+    log(f"  phase 7: {time.perf_counter() - t7:.1f} s")
+
     if failures:
         log(f"FAILED: {failures}")
         return 1
@@ -753,11 +1009,13 @@ def main() -> int:
     log(json.dumps({"kernels": [
         {"name": "sweep", "route": "cuda", "source": "realtrace_tpu_torch/csrc/sweep.cu",
          "replaces": "realtrace_tpu/ops/pallas/trace.py:164", "launches": launches,
-         "train_launches": train_launches[0], "max_abs_err": max(errs), **k1_row},
+         "train_launches": train_launches[0], "phase7_launches": p7[0], "max_abs_err": max(errs),
+         **k1_row},
         {"name": "sweep_stream", "route": "cuda",
          "source": "realtrace_tpu_torch/csrc/sweep_stream.cu",
          "replaces": "realtrace_tpu/ops/pallas/trace.py:228", "launches": stream_launches,
-         "train_launches": train_launches[1], "max_abs_err": max(errs_stream), **k2_row}]}))
+         "train_launches": train_launches[1], "phase7_launches": p7[1],
+         "max_abs_err": max(errs_stream), **k2_row}]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

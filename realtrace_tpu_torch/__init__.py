@@ -6,13 +6,14 @@ against); it imports torch and numpy only.
 """
 
 from realtrace_tpu_torch.core.types import Lights, Materials, RenderConfig, Scene, SceneBuilder
-from realtrace_tpu_torch.render.camera import Camera
+from realtrace_tpu_torch.render.camera import Camera, InteractiveCamera
 from realtrace_tpu_torch.render.pipeline import render_buffer, render_image, render_with_stats
 
 __version__ = "0.1.0"
 
 __all__ = [
     "Camera",
+    "InteractiveCamera",
     "Lights",
     "Materials",
     "RenderConfig",

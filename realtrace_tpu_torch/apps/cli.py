@@ -6,7 +6,9 @@
 renders with ``render_with_stats`` on the CUDA card (``--device cpu`` asks for
 the CPU; there is no fallback), writes a PNG and reports frame time and
 traced rays on stderr. ``--copies 8`` renders the duplicated big scene,
-``--scene glass`` the dielectric one.
+``--scene glass`` the dielectric one, ``--scene parallel --obj ...`` the CUDA
+app's setup and ``--scene primitives`` every primitive family with a
+dielectric cylinder.
 """
 from __future__ import annotations
 
@@ -22,16 +24,19 @@ def build_parser() -> argparse.ArgumentParser:
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--width", type=int, default=512)
     p.add_argument("--height", type=int, default=512)
-    p.add_argument("--scene", choices=["mesh", "glass", "serial", "sphere_plane"],
+    p.add_argument("--scene", choices=["mesh", "glass", "serial", "parallel", "sphere_plane",
+                                       "primitives"],
                    default="mesh",
                    help="mesh: the procedural bob-sized mesh; glass: the mesh behind a "
-                        "dielectric sphere; serial: --obj in the serial app's setup; "
-                        "sphere_plane: sphere over a reflective floor")
+                        "dielectric sphere; serial / parallel: --obj in the serial / CUDA "
+                        "app's setup; sphere_plane: sphere over a reflective floor; "
+                        "primitives: every primitive family, a dielectric cylinder")
     p.add_argument("--copies", type=int, default=1,
                    help="copies of the mesh on an x/z grid (mesh scene; the big-scene workload)")
-    p.add_argument("--obj", default=None, help="OBJ mesh path (serial scene)")
+    p.add_argument("--obj", default=None, help="OBJ mesh path (serial and parallel scenes)")
     p.add_argument("--texture", default=None, help="texture PNG sampled per vertex")
-    p.add_argument("--scale", type=float, default=15.0, help="OBJ scaling factor")
+    p.add_argument("--scale", type=float, default=None,
+                   help="OBJ scaling factor (default: 15 serial, 2 parallel)")
     p.add_argument("--max-faces", type=int, default=None,
                    help="triangle cap (the serial app used 2000)")
     p.add_argument("--depth", type=int, default=3, help="max bounce depth")
@@ -62,12 +67,20 @@ def main(argv=None) -> int:
                        legacy_diffuse=not args.fixed_diffuse)
     if args.scene == "sphere_plane":
         scene, cam = scenes.sphere_plane_scene(dtype=dtype, device=dev)
-    elif args.scene == "serial":
+    elif args.scene == "primitives":
+        scene, cam = scenes.full_primitive_scene(dtype=dtype, device=dev)
+    elif args.scene in ("serial", "parallel"):
         if args.obj is None:
-            raise SystemExit("--scene serial needs --obj")
-        scene, cam = scenes.serial_obj_scene(args.obj, texture_path=args.texture, dtype=dtype,
-                                             device=dev, scale=args.scale,
-                                             max_faces=args.max_faces)
+            raise SystemExit(f"--scene {args.scene} needs --obj")
+        if args.scene == "serial":
+            scene, cam = scenes.serial_obj_scene(args.obj, texture_path=args.texture,
+                                                 dtype=dtype, device=dev,
+                                                 scale=args.scale or 15.0,
+                                                 max_faces=args.max_faces)
+        else:
+            scene, cam = scenes.parallel_obj_scene(args.obj, dtype=dtype, device=dev,
+                                                   scale=args.scale or 2.0,
+                                                   max_faces=args.max_faces)
     elif args.scene == "glass":
         scene, cam = scenes.glass_mesh_scene(dtype=dtype, device=dev)
     else:

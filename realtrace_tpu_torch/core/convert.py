@@ -83,6 +83,31 @@ def scene_to_numpy(scene) -> dict:
     return _fields_to_numpy(scene, [f.name for f in dataclasses.fields(Scene)])
 
 
+def scene_to_npz(path, scene) -> None:
+    """Write ``scene_to_numpy(scene)`` (a JAX ``Scene`` too) as one npz:
+    nested dicts flattened to ``field/key`` names, None fields left out."""
+    flat = {}
+    for k, v in scene_to_numpy(scene).items():
+        if isinstance(v, dict):
+            flat.update({f"{k}/{kk}": vv for kk, vv in v.items()})
+        elif v is not None:
+            flat[k] = v
+    np.savez(path, **flat)
+
+
+def scene_from_npz(path, dtype=None, device=None) -> Scene:
+    """Inverse of ``scene_to_npz``, through ``scene_from_numpy``."""
+    d: dict = {}
+    with np.load(path) as z:
+        for name in z.files:
+            k, _, kk = name.partition("/")
+            if kk:
+                d.setdefault(k, {})[kk] = z[name]
+            else:
+                d[k] = z[name]
+    return scene_from_numpy(d, dtype=dtype, device=device)
+
+
 def params_from_numpy(d: dict, dtype=None, device=None) -> dict:
     """A parameter dict (the ``diff.inverse.DIFF_FIELDS`` sub-dict of a scene:
     tensors, ``Materials``, ``Lights``) from its numpy form, the layout of

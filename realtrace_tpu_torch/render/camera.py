@@ -1,13 +1,16 @@
-"""Pinhole camera as a small dataclass of tensors.
+"""Pinhole camera as a small dataclass of tensors, and the interactive orbit
+camera.
 
-Counterpart of ``realtrace_tpu/render/camera.py`` (Ref: Serial/camera.cpp).
-The whole image's ray directions come out as one dense ``(R, 3)`` batch.
+Counterpart of ``realtrace_tpu/render/camera.py`` (Ref: Serial/camera.cpp,
+Parellel/interactive_camera.cu). The whole image's ray directions come out as
+one dense ``(R, 3)`` batch.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 
+import numpy as np
 import torch
 from torch import Tensor
 
@@ -81,8 +84,81 @@ class Camera:
         d = (-w)[None, :] * focal + u[None, :] * xw[:, None] + v[None, :] * yw[:, None]
         return vec.normalize(d)
 
+    def ray_directions_tile(self, i0: int, j0: int, tile_w: int, tile_h: int) -> Tensor:
+        """Ray directions of the pixel tile [i0, i0+tile_w) x [j0, j0+tile_h)
+        as (tile_h*tile_w, 3), row-major: ``ray_directions_at`` on the offset
+        indices, so a tile's rays equal the full frame's for the same pixels,
+        bit for bit."""
+        jj, ii = torch.meshgrid(torch.arange(j0, j0 + tile_h), torch.arange(i0, i0 + tile_w),
+                                indexing="ij")
+        return self.ray_directions_at(ii.reshape(-1), jj.reshape(-1))
+
 
 def image_from_buffer(buf: Tensor, camera: Camera) -> Tensor:
     """Flat (H*W, 3) buffer → top-down (H, W, 3) image (the reference bitmap
     stores row j from the bottom, Serial/camera.cpp:46-52)."""
     return torch.flip(buf.reshape(camera.height, camera.width, 3), dims=(0,))
+
+
+@dataclasses.dataclass
+class InteractiveCamera:
+    """Orbit camera: yaw/pitch/radius around a center point, a plain-Python
+    state machine (Parellel/interactive_camera.cu). ``build_render_camera``
+    turns the spherical coordinates into a pinhole ``Camera`` each frame
+    (ref :64-81); it drives the flythrough and the viewer."""
+
+    center: np.ndarray = dataclasses.field(default_factory=lambda: np.zeros(3))
+    yaw: float = 0.0
+    pitch: float = 0.3
+    radius: float = 10.0
+    aperture_radius: float = 0.04
+    resolution: tuple = (512, 512)
+    fov_x: float = 45.0
+
+    # controls (ref Parellel/interactive_camera.cu:21-46)
+    def change_yaw(self, m: float):
+        self.yaw = (self.yaw + m) % (2.0 * math.pi)
+
+    def change_pitch(self, m: float):
+        pad = 0.05
+        self.pitch = float(np.clip(self.pitch + m, -(math.pi / 2) + pad, (math.pi / 2) - pad))
+
+    def change_radius(self, m: float):
+        self.radius = float(np.clip(self.radius * (1.0 + m), 0.2, 100.0))
+
+    def change_altitude(self, m: float):
+        self.center = self.center + np.array([0.0, m, 0.0])
+
+    def change_aperture_diameter(self, m: float):
+        self.aperture_radius = float(np.clip(
+            self.aperture_radius + (self.aperture_radius + 0.01) * m, 0.0, 25.0))
+
+    @property
+    def fov_y(self) -> float:
+        """Vertical FOV from the horizontal one (ref setFOVX, :58-61)."""
+        rx, ry = self.resolution
+        return math.degrees(2.0 * math.atan(math.tan(math.radians(self.fov_x) * 0.5) * (ry / rx)))
+
+    def build_render_camera(self, dtype=torch.float32, device=None) -> Camera:
+        """Spherical coordinates to the eye position (ref buildRenderCamera,
+        :64-81); the look-at point is eye + view direction. On the card
+        unless ``device`` names another."""
+        d = np.array([math.sin(self.yaw) * math.cos(self.pitch),
+                      math.sin(self.pitch),
+                      math.cos(self.yaw) * math.cos(self.pitch)])
+        eye = self.center + d * self.radius
+        return Camera.make(eye, eye - d, (0.0, 1.0, 0.0), self.fov_y,
+                           self.resolution[0], self.resolution[1], dtype=dtype, device=device)
+
+
+def mouse_drag(cam: InteractiveCamera, button: str, dx: float, dy: float) -> None:
+    """GLUT mouse-motion semantics (ref Parellel/interactions.cu:27-57): left
+    drag = yaw/pitch, middle = altitude, right = radius."""
+    scale = 0.005
+    if button == "left":
+        cam.change_yaw(-dx * scale)
+        cam.change_pitch(-dy * scale)
+    elif button == "middle":
+        cam.change_altitude(-dy * scale * 10.0)
+    elif button == "right":
+        cam.change_radius(-dy * scale)

@@ -47,21 +47,26 @@ def _tile_maps(width: int, height: int):
     return ii, jj, valid, inv
 
 
-def _untile(buf: Tensor, camera: Camera) -> Tensor:
-    """Tile-major wavefront buffer → row-major (H*W, 3) buffer (reshape,
-    transpose and crop only)."""
-    hp = -(-camera.height // _TH) * _TH
-    wp = -(-camera.width // _TW) * _TW
+def _untile(buf: Tensor, tile_w: int, tile_h: int) -> Tensor:
+    """Tile-major wavefront buffer of a ``tile_w`` x ``tile_h`` pixel tile →
+    row-major (tile_h*tile_w, 3) buffer (reshape, transpose and crop only)."""
+    hp = -(-tile_h // _TH) * _TH
+    wp = -(-tile_w // _TW) * _TW
     img = buf.reshape(hp // _TH, wp // _TW, _TH, _TW, 3).permute(0, 2, 1, 3, 4).reshape(hp, wp, 3)
-    return img[:camera.height, :camera.width].reshape(-1, 3)
+    return img[:tile_h, :tile_w].reshape(-1, 3)
 
 
-def _tiled_rays(camera: Camera):
-    """Tile-major padded wavefront inputs (ro, rd, coeff): rays are generated
-    directly at tile-major pixel coordinates. ``coeff`` is None when the image
-    fills the tile grid; otherwise zero on pad slots, which are parked."""
-    ii, jj, valid, _ = _tile_maps(camera.width, camera.height)
-    rd = camera.ray_directions_at(ii, jj)
+def _tiled_rays(camera: Camera, i0: int = 0, j0: int = 0, tile_w: int | None = None,
+                tile_h: int | None = None):
+    """Tile-major padded wavefront inputs (ro, rd, coeff) of the pixel tile
+    [i0, i0+tile_w) x [j0, j0+tile_h) (default: the whole frame): rays are
+    generated directly at tile-major pixel coordinates, equal to the full
+    frame's for the same pixels. ``coeff`` is None when the tile fills the
+    32x32 grid; otherwise zero on pad slots, which are parked."""
+    tile_w = camera.width if tile_w is None else tile_w
+    tile_h = camera.height if tile_h is None else tile_h
+    ii, jj, valid, _ = _tile_maps(tile_w, tile_h)
+    rd = camera.ray_directions_at(ii + i0, jj + j0)
     ro = camera.position.expand_as(rd)
     if valid.all():
         return ro, rd, None
@@ -72,10 +77,22 @@ def _tiled_rays(camera: Camera):
     return ro, rd, coeff
 
 
+def render_tile_buffer(scene: Scene, camera: Camera, cfg: RenderConfig, i0: int = 0,
+                       j0: int = 0, tile_w: int | None = None, tile_h: int | None = None):
+    """Render the pixel tile [i0, i0+tile_w) x [j0, j0+tile_h) (columns,
+    rows from the bottom; default: the whole frame) through the tile-major
+    wavefront: (row-major (tile_h*tile_w, 3) linear colour buffer, unclamped;
+    traced-ray count). The unit of progressive bands and sharded tiles."""
+    tile_w = camera.width if tile_w is None else tile_w
+    tile_h = camera.height if tile_h is None else tile_h
+    ro, rd, coeff = _tiled_rays(camera, i0, j0, tile_w, tile_h)
+    accum, nrays = trace_wavefront(scene, ro, rd, cfg, coeff=coeff)
+    return _untile(accum, tile_w, tile_h), nrays
+
+
 def render_buffer(scene: Scene, camera: Camera, cfg: RenderConfig) -> Tensor:
     """Render to a flat (H*W, 3) linear colour buffer (unclamped)."""
-    ro, rd, coeff = _tiled_rays(camera)
-    return _untile(trace_wavefront(scene, ro, rd, cfg, coeff=coeff)[0], camera)
+    return render_tile_buffer(scene, camera, cfg)[0]
 
 
 def render_image(scene: Scene, camera: Camera, cfg: RenderConfig) -> Tensor:
@@ -87,10 +104,8 @@ def render_image(scene: Scene, camera: Camera, cfg: RenderConfig) -> Tensor:
 def render_with_stats(scene: Scene, camera: Camera, cfg: RenderConfig):
     """Render + traced-ray count (primary + shadow + reflection rays), the
     basis of the Mrays/s metric: (image (H, W, 3), nrays int)."""
-    ro, rd, coeff = _tiled_rays(camera)
-    accum, nrays = trace_wavefront(scene, ro, rd, cfg, coeff=coeff)
-    img = torch.clamp(image_from_buffer(_untile(accum, camera), camera), 0.0, 1.0)
-    return img, nrays
+    buf, nrays = render_tile_buffer(scene, camera, cfg)
+    return torch.clamp(image_from_buffer(buf, camera), 0.0, 1.0), nrays
 
 
 def to_rgba8(img: Tensor) -> Tensor:

@@ -298,3 +298,53 @@ def test_backward_is_bit_identical_twice_and_with_or_without_remat(mesh_on_card)
     b = card_grads(scene, camera)
     c = card_grads(scene, camera, dataclasses.replace(CFG, remat=False))
     assert all(torch.equal(x, y) and torch.equal(x, z) for x, y, z in zip(a, b, c))
+
+
+def test_progressive_band_on_card_equals_full_render(mesh_on_card):
+    """Bands of 16 rows (half of each 32x32 wavefront tile parked) through
+    the kernel equal the whole frame bit for bit; a band launches K1."""
+    from realtrace_tpu_torch.render.pipeline import render_image
+    from realtrace_tpu_torch.render.progressive import ProgressiveRenderer
+
+    scene, camera = mesh_on_card
+    pr = ProgressiveRenderer(scene, camera, CFG, band=16)
+    before = sweep.sweep.launches
+    pr.step()
+    assert sweep.sweep.launches > before
+    img = pr.render_all()
+    assert torch.equal(img, render_image(scene, camera, CFG))
+
+
+def test_sharded_render_world_size_one_over_nccl(mesh_on_card):
+    import socket
+
+    import torch.distributed as dist
+
+    from realtrace_tpu_torch.parallel import mesh as pmesh
+    from realtrace_tpu_torch.render.pipeline import render_image
+
+    scene, camera = mesh_on_card
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    pmesh.init_distributed(f"127.0.0.1:{port}", 1, 0, backend="nccl")
+    try:
+        mesh = pmesh.make_mesh()
+        img = pmesh.sharded_render(pmesh.replicate_scene(scene, mesh), camera, CFG, mesh)
+        x = torch.arange(4.0, device=camera.position.device)
+        dist.all_reduce(x)
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    assert torch.equal(img, render_image(scene, camera, CFG))
+    assert torch.equal(x.cpu(), torch.arange(4.0))
+
+
+def test_samples_on_card_equal_cpu(cuda):
+    from realtrace_tpu_torch.apps import samples
+
+    assert torch.equal(samples.flashlight(64, 48, (30.5, 11.25), device=cuda).cpu(),
+                       samples.flashlight(64, 48, (30.5, 11.25), device="cpu"))
+    for sys_ in (0, 1, 2):
+        assert torch.equal(samples.stability(64, 48, 0.1, sys_, device=cuda).cpu(),
+                           samples.stability(64, 48, 0.1, sys_, device="cpu"))
