@@ -26,16 +26,21 @@ and the script exits 1 without printing a result:
    just after: render_with_stats at 1920x1080, depth 3, shadows,
    accel="sweep" on mesh_scene (resident kernel), on duplicated_mesh_scene(8)
    (streaming kernel, big-scene masks) and on glass_mesh_scene (the branching
-   wavefront, rendered twice: bit-equal); each against the same render
-   through the twin (image error > 1e-4 on at most 0.2% of pixels; the twin
-   renders from the exact lists, the kernels from the card's list policy);
-   the same frames under the other list policy (0 pixels over 1e-4, equal
-   ray counts); the golden128 scene in f32 against tests/oracle/golden128.npz (error > 1e-4 on
-   at most 0.5% of pixels); full_primitive_scene (a dielectric cylinder)
-   against the NumPy oracle in f64 (error > 1e-6 on at most 0.2%) and in f32
-   (error > 1e-4 on at most 2%);
+   wavefront, rendered twice: bit-equal); the JAX bench's OBJ workloads on
+   mesh_scene's mesh written as an OBJ: duplicated_serial_scene(8) (its
+   vertices equal duplicated_mesh_scene(8)'s; streaming kernel only) and
+   glass_bob_scene (resident kernel only; rendered twice: bit-equal); each
+   against the same render through the twin (image error > 1e-4 on at most
+   0.2% of pixels; the twin renders from the exact lists, the kernels from
+   the card's list policy); the first three frames under the other list
+   policy (0 pixels over 1e-4, equal ray counts); the golden128 scene in f32
+   against tests/oracle/golden128.npz (error > 1e-4 on at most 0.5% of
+   pixels); full_primitive_scene (a dielectric cylinder) against the NumPy
+   oracle in f64 (error > 1e-6 on at most 0.2%) and in f32 (error > 1e-4 on
+   at most 2%);
 5. timing with CUDA events after one warm-up frame: mesh_scene's serial and
-   close framings, the x4, x8, x16 and glass frames; each kernel beside the
+   close framings, the x4, x8, x16 and glass frames, the two OBJ frames of
+   phase 4; each kernel beside the
    twin on its 1080p primary query, with the least time the card could take
    for the (ray, triangle) pairs its warps tested, and on the reflection
    and shadow wavefronts; each of these queries runs under the card's list
@@ -84,6 +89,7 @@ import contextlib
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -141,6 +147,19 @@ def scene128(dtype, device):
     b.ambient = (1, 1, 1)
     b.background = (0.1, 0.3, 0.6)
     return b.build()
+
+
+def write_mesh_obj(path: Path):
+    """mesh_arrays() at full detail (10,752 triangles, unscaled) as an OBJ of
+    ``v`` and ``f`` lines, floats at 17 significant digits. Returns the
+    triangles written."""
+    from realtrace_tpu_torch.apps import scenes
+
+    tv, _ = scenes.mesh_arrays()
+    path.write_text("".join(f"v {x:.17g} {y:.17g} {z:.17g}\n" for x, y, z in tv.reshape(-1, 3))
+                    + "".join(f"f {3 * k + 1} {3 * k + 2} {3 * k + 3}\n"
+                              for k in range(len(tv))))
+    return tv
 
 
 @contextlib.contextmanager
@@ -374,8 +393,6 @@ def progressive_run(name, scene, camera, cfg, band, frame, card):
     against ``frame`` (the render_with_stats image and its (K1, K2) launches);
     save after band 4 and resume in a fresh renderer. Returns (K1, K2)
     launches of the run."""
-    import tempfile
-
     import torch
 
     from realtrace_tpu_torch.ops import sweep
@@ -428,7 +445,6 @@ def sharded_runs(mesh, camera, cfg, img_full, card):
     """Phase 7: the two-rank smoke (gloo on the card) and a world-size-1 NCCL
     group. Returns the K1 launches of rank 0's sharded frame."""
     import socket
-    import tempfile
 
     import torch
     import torch.distributed as dist
@@ -493,7 +509,6 @@ def apps_runs(mesh, cam, cfg, dev, card):
     """Phase 7: flythrough, viewer, samples, OBJ parsers and the CUDA app's
     scene. Returns the K1 launches of the flythrough and the OBJ frame."""
     import io
-    import tempfile
 
     import numpy as np
     import torch
@@ -555,13 +570,9 @@ def apps_runs(mesh, cam, cfg, dev, card):
           "flashlight (1920x1080) and stability (128x128, three systems) on the card equal "
           "the CPU's")
 
-    tv, _ = scenes.mesh_arrays()
     with tempfile.TemporaryDirectory() as tmp:
         path = Path(tmp) / "mesh.obj"
-        verts = tv.reshape(-1, 3)
-        path.write_text("".join(f"v {x:.17g} {y:.17g} {z:.17g}\n" for x, y, z in verts)
-                        + "".join(f"f {3 * k + 1} {3 * k + 2} {3 * k + 3}\n"
-                                  for k in range(len(tv))))
+        tv = write_mesh_obj(path)
         native = obj.parse_obj(path)
         check(native_obj._lib is not None, "the native OBJ parser built and loaded")
         saved = obj._try_native
@@ -891,6 +902,32 @@ def main() -> int:
           "glass_mesh_scene renders twice bit-identically")
     del img_g2
 
+    # the JAX bench's OBJ workloads, on mesh_scene's mesh written as an OBJ
+    with tempfile.TemporaryDirectory() as tmp:
+        obj_path = Path(tmp) / "mesh.obj"
+        write_mesh_obj(obj_path)
+        x8_obj, _ = scenes.duplicated_serial_scene(8, obj_path, device=dev)
+        glass_obj, _ = scenes.glass_bob_scene(obj_path, device=dev)
+    same = torch.equal(x8_obj.tri_vertices, x8.tri_vertices)
+    dv = float((x8_obj.tri_vertices - x8.tri_vertices).abs().max())
+    log(f"  duplicated_serial_scene(8) from the OBJ: {x8_obj.n_triangles} triangles, vertices "
+        f"{'bit-equal to' if same else 'not bit-equal to'} duplicated_mesh_scene(8)'s, max "
+        f"|difference| {dv:.3e}")
+    check(x8_obj.n_triangles == x8.n_triangles and (same or dv < 1e-5),
+          "the OBJ x8 scene's vertices equal the procedural x8's (bit for bit, else within 1e-5)")
+    x8_obj = accel.with_chunks(x8_obj, cfg)
+    _, n_8o, k1, k2_obj = main_path("duplicated_serial_scene(8)", x8_obj, camera, cfg)
+    check(k2_obj > 0 and k1 == 0, "the OBJ x8 scene launched the streaming kernel only")
+    log(f"  rays: duplicated_serial_scene(8) {n_8o}, duplicated_mesh_scene(8) {n_8}")
+    glass_obj = accel.with_chunks(glass_obj, cfg)
+    check(glass_obj.has_dielectrics(), "glass_bob_scene has a dielectric")
+    img_go, n_go, k1_obj, k2 = main_path("glass_bob_scene", glass_obj, camera, cfg)
+    check(k1_obj > 0 and k2 == 0, "glass_bob_scene launched the resident kernel only")
+    img_go2, n_go2 = render_with_stats(glass_obj, camera, cfg)
+    check(n_go == n_go2 and torch.equal(img_go, img_go2),
+          "glass_bob_scene renders twice bit-identically")
+    del img_go, img_go2
+
     for name, scene, img_b, n_b in (("mesh_scene", mesh, img_m, n_m),
                                     ("duplicated_mesh_scene(8)", x8, img_8, n_8),
                                     ("glass_mesh_scene", glass, img_g, n_g)):
@@ -946,7 +983,9 @@ def main() -> int:
         frame_time(f"mesh_scene, {name} framing {position}", mesh,
                    scenes.make_camera(dict(cam, position=position), W, H, device=dev), reps=3)
     frame_time("glass_mesh_scene", glass, camera, reps=3)
-    del glass
+    frame_time("glass_bob_scene (mesh_scene's mesh from an OBJ)", glass_obj, camera, reps=3)
+    frame_time("duplicated_serial_scene(8) (the same OBJ)", x8_obj, camera, reps=3)
+    del glass, glass_obj, x8_obj
     k1_row = query_times("mesh_scene, resident kernel, 1080p primary", ro, rd, pack, cfg, False,
                          twin_reps=2)
     k2_row = query_times("x8, streaming kernel, 1080p primary", ro, rd, pack8, cfg, True,
@@ -1009,13 +1048,14 @@ def main() -> int:
     log(json.dumps({"kernels": [
         {"name": "sweep", "route": "cuda", "source": "realtrace_tpu_torch/csrc/sweep.cu",
          "replaces": "realtrace_tpu/ops/pallas/trace.py:164", "launches": launches,
-         "train_launches": train_launches[0], "phase7_launches": p7[0], "max_abs_err": max(errs),
+         "obj_scene_launches": k1_obj, "train_launches": train_launches[0],
+         "phase7_launches": p7[0], "max_abs_err": max(errs),
          **k1_row},
         {"name": "sweep_stream", "route": "cuda",
          "source": "realtrace_tpu_torch/csrc/sweep_stream.cu",
          "replaces": "realtrace_tpu/ops/pallas/trace.py:228", "launches": stream_launches,
-         "train_launches": train_launches[1], "phase7_launches": p7[1],
-         "max_abs_err": max(errs_stream), **k2_row}]}))
+         "obj_scene_launches": k2_obj, "train_launches": train_launches[1],
+         "phase7_launches": p7[1], "max_abs_err": max(errs_stream), **k2_row}]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

@@ -4,11 +4,15 @@
         --depth 3 --accel sweep --out mesh.png
 
 renders with ``render_with_stats`` on the CUDA card (``--device cpu`` asks for
-the CPU; there is no fallback), writes a PNG and reports frame time and
-traced rays on stderr. ``--copies 8`` renders the duplicated big scene,
-``--scene glass`` the dielectric one, ``--scene parallel --obj ...`` the CUDA
-app's setup and ``--scene primitives`` every primitive family with a
-dielectric cylinder.
+the CPU; there is no fallback), writes a PNG (without ``--out``, a
+timestamped one in the working directory) and reports frame time and traced
+rays on stderr. ``--copies 8`` renders the duplicated big scene, ``--scene
+glass`` the dielectric one, ``--scene serial --obj bob_tri.obj`` the serial
+app's setup (``--copies N`` duplicates it, ``--scene glass --obj ...`` puts
+the dielectric sphere in front of it), ``--scene parallel --obj ...`` the
+CUDA app's setup and ``--scene primitives`` every primitive family with a
+dielectric cylinder. Without ``--obj`` the serial and parallel scenes load
+``bob_tri.obj`` from the asset folder (``scenes.asset``).
 """
 from __future__ import annotations
 
@@ -27,13 +31,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--scene", choices=["mesh", "glass", "serial", "parallel", "sphere_plane",
                                        "primitives"],
                    default="mesh",
-                   help="mesh: the procedural bob-sized mesh; glass: the mesh behind a "
-                        "dielectric sphere; serial / parallel: --obj in the serial / CUDA "
-                        "app's setup; sphere_plane: sphere over a reflective floor; "
+                   help="mesh: the procedural bob-sized mesh; glass: the mesh (or --obj) "
+                        "behind a dielectric sphere; serial / parallel: --obj in the serial / "
+                        "CUDA app's setup; sphere_plane: sphere over a reflective floor; "
                         "primitives: every primitive family, a dielectric cylinder")
     p.add_argument("--copies", type=int, default=1,
-                   help="copies of the mesh on an x/z grid (mesh scene; the big-scene workload)")
-    p.add_argument("--obj", default=None, help="OBJ mesh path (serial and parallel scenes)")
+                   help="copies of the model on an x/z grid (the big-scene workload; mesh and "
+                        "serial scenes only)")
+    p.add_argument("--obj", default=None,
+                   help="OBJ mesh path (serial, parallel and glass scenes)")
     p.add_argument("--texture", default=None, help="texture PNG sampled per vertex")
     p.add_argument("--scale", type=float, default=None,
                    help="OBJ scaling factor (default: 15 serial, 2 parallel)")
@@ -46,18 +52,22 @@ def build_parser() -> argparse.ArgumentParser:
                    help="use the surface->light diffuse direction instead of the reference quirk")
     p.add_argument("--device", default="cuda",
                    help="cuda (the default; fails without a card) or cpu")
-    p.add_argument("--out", default="render.png", help="output PNG")
+    p.add_argument("--out", default=None,
+                   help="output PNG (default: 'RealTraceTPU <date>.png' in the working directory)")
     p.add_argument("--repeats", type=int, default=1, help="frames to render")
     p.add_argument("--f64", action="store_true", help="double precision")
     return p
 
 
 def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if args.copies != 1 and args.scene not in ("mesh", "serial"):
+        parser.error(f"--copies {args.copies}: --scene {args.scene} has no duplicated form")
 
     from realtrace_tpu_torch.apps import scenes
     from realtrace_tpu_torch.core.types import RenderConfig
-    from realtrace_tpu_torch.io.image import save_png
+    from realtrace_tpu_torch.io.image import save_png, save_timestamped_png
     from realtrace_tpu_torch.ops import accel
     from realtrace_tpu_torch.render.pipeline import render_with_stats
 
@@ -65,22 +75,21 @@ def main(argv=None) -> int:
     dev = torch.device(args.device)
     cfg = RenderConfig(max_depth=args.depth, accel=args.accel, shadows=not args.no_shadows,
                        legacy_diffuse=not args.fixed_diffuse)
+    serial_kw = dict(texture_path=args.texture, dtype=dtype, device=dev,
+                     scale=args.scale or 15.0, max_faces=args.max_faces)
     if args.scene == "sphere_plane":
         scene, cam = scenes.sphere_plane_scene(dtype=dtype, device=dev)
     elif args.scene == "primitives":
         scene, cam = scenes.full_primitive_scene(dtype=dtype, device=dev)
-    elif args.scene in ("serial", "parallel"):
-        if args.obj is None:
-            raise SystemExit(f"--scene {args.scene} needs --obj")
-        if args.scene == "serial":
-            scene, cam = scenes.serial_obj_scene(args.obj, texture_path=args.texture,
-                                                 dtype=dtype, device=dev,
-                                                 scale=args.scale or 15.0,
-                                                 max_faces=args.max_faces)
-        else:
-            scene, cam = scenes.parallel_obj_scene(args.obj, dtype=dtype, device=dev,
-                                                   scale=args.scale or 2.0,
-                                                   max_faces=args.max_faces)
+    elif args.scene == "parallel":
+        scene, cam = scenes.parallel_obj_scene(args.obj, dtype=dtype, device=dev,
+                                               scale=args.scale or 2.0, max_faces=args.max_faces)
+    elif args.scene == "serial" and args.copies == 1:
+        scene, cam = scenes.serial_obj_scene(args.obj, **serial_kw)
+    elif args.scene == "serial":
+        scene, cam = scenes.duplicated_serial_scene(args.copies, args.obj, **serial_kw)
+    elif args.scene == "glass" and args.obj is not None:
+        scene, cam = scenes.glass_bob_scene(args.obj, **serial_kw)
     elif args.scene == "glass":
         scene, cam = scenes.glass_mesh_scene(dtype=dtype, device=dev)
     else:
@@ -100,7 +109,8 @@ def main(argv=None) -> int:
         dt = time.perf_counter() - t0
         print(f"[INFO] frame {k}: {dt * 1e3:.1f} ms, {nrays} rays, "
               f"{nrays / dt / 1e6:.2f} Mrays/s", file=sys.stderr)
-    path = save_png(args.out, img.cpu().numpy())
+    img = img.cpu().numpy()
+    path = save_png(args.out, img) if args.out else save_timestamped_png(img)
     print(f"Image saved as: {path}", file=sys.stderr)
     return 0
 

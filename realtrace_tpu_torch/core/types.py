@@ -64,12 +64,23 @@ class Materials:
     eta: Tensor  # (N,) index of refraction
 
     @staticmethod
+    def full(n: int, dtype=torch.float32, device=None, **vals: float) -> "Materials":
+        """``n`` entries of one material, given by its six values."""
+        device = default_device(device)
+        return Materials(**{k: torch.full((n,), vals[k], dtype=dtype, device=device)
+                            for k in MATERIAL_KEYS})
+
+    @staticmethod
+    def default(n: int, dtype=torch.float32, device=None) -> "Materials":
+        """Reference defaults: Serial/material.h:27-29 (ka .2, kd 1, ks .4)."""
+        return Materials.full(n, dtype, device, ka=0.2, kd=1.0, ks=0.4, kr=0.0, kt=0.0,
+                              eta=128.0)
+
+    @staticmethod
     def obj_default(n: int, dtype=torch.float32, device=None) -> "Materials":
         """Materials the OBJ loader assigns: Serial/lumina.cpp init_material_from_obj."""
-        device = default_device(device)
-        vals = dict(ka=0.2, kd=0.9, ks=0.4, kr=0.4, kt=0.0, eta=3.0)
-        return Materials(**{k: torch.full((n,), v, dtype=dtype, device=device)
-                            for k, v in vals.items()})
+        return Materials.full(n, dtype, device, ka=0.2, kd=0.9, ks=0.4, kr=0.4, kt=0.0,
+                              eta=3.0)
 
     def to(self, device) -> "Materials":
         return _to(self, device)

@@ -23,9 +23,17 @@ def cross(a: Tensor, b: Tensor) -> Tensor:
     return torch.stack([ay * bz - az * by, az * bx - ax * bz, ax * by - ay * bx], dim=-1)
 
 
-def normalize(a: Tensor) -> Tensor:
-    """Normalize; zero vectors stay zero (guarded division, NaN-free grads)."""
+def length(a: Tensor) -> Tensor:
+    """Batched Euclidean length."""
+    return torch.sqrt(dot(a, a))
+
+
+def normalize(a: Tensor, eps: float = 0.0) -> Tensor:
+    """Normalize; zero vectors stay zero (guarded division, NaN-free grads).
+    ``eps`` > 0 floors the squared length at ``eps`` before the division."""
     n2 = dot(a, a)[..., None]
+    if eps:
+        n2 = torch.clamp_min(n2, eps)
     pos = n2 > 0
     return a * torch.where(pos, 1.0 / torch.sqrt(torch.where(pos, n2, torch.ones_like(n2))),
                            torch.zeros_like(n2))
@@ -50,3 +58,13 @@ def refract(i: Tensor, n: Tensor, eta: Tensor) -> tuple[Tensor, Tensor]:
     t = eta[..., None] * i - (eta * ndi + sq)[..., None] * n
     return torch.where(ok[..., None], t, torch.zeros_like(t)), ok
 
+
+def det3(c1: Tensor, c2: Tensor, c3: Tensor) -> Tensor:
+    """Determinant of the 3x3 matrix with columns c1, c2, c3 (batched), as
+    the scalar triple product. Ref: ``determinant``, Serial/utilities.cpp:17-22."""
+    return dot(c1, cross(c2, c3))
+
+
+def distance(a: Tensor, b: Tensor) -> Tensor:
+    """Euclidean distance. Ref: ``distance``, Serial/world.cpp:120-123."""
+    return length(a - b)

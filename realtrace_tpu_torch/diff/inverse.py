@@ -23,8 +23,8 @@ from realtrace_tpu_torch.ops import accel
 from realtrace_tpu_torch.render.camera import Camera
 from realtrace_tpu_torch.render.pipeline import render_buffer
 
-__all__ = ["DIFF_FIELDS", "apply_params", "image_grad", "make_train_step", "render_loss",
-           "scene_params"]
+__all__ = ["DIFF_FIELDS", "OptimizerFactory", "apply_params", "image_grad", "make_train_step",
+           "render_loss", "scene_params"]
 
 
 def scene_params(scene: Scene, fields=DIFF_FIELDS) -> dict:
@@ -63,26 +63,42 @@ def _fill_zero_grads(leaves: list[Tensor]) -> None:
         p.grad = _or_zeros(p.grad, p)
 
 
+OptimizerFactory = Callable[[list[Tensor]], torch.optim.Optimizer]
+
+
+def trainable(scene: Scene, fields, optimizer: OptimizerFactory | None, lr: float):
+    """``(params, leaves, optimizer)`` of a train step: fresh leaf tensors
+    (copies of the scene's fields, with ``requires_grad``), their flat list,
+    and ``optimizer(leaves)``; by default ``torch.optim.Adam`` at
+    optax.adam's defaults (b1 0.9, b2 0.999, eps 1e-8 added outside the
+    square root) with rate ``lr``."""
+    params = map_tensors(lambda x: x.detach().clone().requires_grad_(True),
+                         scene_params(scene, fields))
+    leaves = tensor_leaves(params)
+    if optimizer is None:
+        return params, leaves, torch.optim.Adam(leaves, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    return params, leaves, optimizer(leaves)
+
+
 def make_train_step(scene: Scene, camera: Camera, cfg: RenderConfig, target: Tensor,
-                    lr: float = 1e-2, fields=DIFF_FIELDS, resort_chunks: bool | None = None):
+                    lr: float = 1e-2, fields=DIFF_FIELDS, resort_chunks: bool | None = None,
+                    optimizer: OptimizerFactory | None = None):
     """Inverse rendering: ``(step, params, optimizer)``.
 
     ``params`` holds fresh leaf tensors (copies of the scene's fields, with
-    ``requires_grad``) and ``optimizer`` is a ``torch.optim.Adam`` over them
-    with optax.adam's defaults (b1 0.9, b2 0.999, eps 1e-8 added outside the
-    square root). ``step()`` runs one forward, ``loss.backward()`` and
-    ``optimizer.step()``, updates ``params`` in place and returns the loss
-    (a tensor; reading it syncs the host). ``target`` is the flat or
+    ``requires_grad``) and ``optimizer`` is what the factory ``optimizer``
+    makes of their list (the counterpart of the JAX package's optax
+    argument), by default a ``torch.optim.Adam`` at rate ``lr`` with
+    optax.adam's defaults. ``step()`` runs one forward, ``loss.backward()``
+    and ``optimizer.step()``, updates ``params`` in place and returns the
+    loss (a tensor; reading it syncs the host). ``target`` is the flat or
     (H, W, 3) goal buffer in linear colour, bottom-up as ``render_buffer``.
 
     ``resort_chunks`` (default: on exactly when ``tri_vertices`` is trained
     with ``accel="sweep"``) rebuilds the chunk ordering every step, as the JAX
     package does.
     """
-    params = map_tensors(lambda x: x.detach().clone().requires_grad_(True),
-                         scene_params(scene, fields))
-    leaves = tensor_leaves(params)
-    optimizer = torch.optim.Adam(leaves, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    params, leaves, optimizer = trainable(scene, fields, optimizer, lr)
     tgt = target.reshape(-1, 3)
     if resort_chunks is None:
         resort_chunks = "tri_vertices" in fields and cfg.accel == "sweep"

@@ -7,6 +7,7 @@ the standard library).
 from __future__ import annotations
 
 import struct
+import time
 import zlib
 from pathlib import Path
 
@@ -35,6 +36,13 @@ def save_png(path: str | Path, img) -> Path:
     else:
         _write_png_pure(path, a)
     return path
+
+
+def save_timestamped_png(img, prefix: str = "RealTraceTPU", directory: str | Path = ".") -> Path:
+    """Save under a timestamped name, ``"<prefix> Mon Jan 05 14-03-09 2026.png"``
+    in ``directory``: the ``SaveImage`` analog (Serial/lumina.cpp:424-439)."""
+    name = f"{prefix} {time.strftime('%a %b %d %H-%M-%S %Y')}.png"
+    return save_png(Path(directory) / name, img)
 
 
 def load_png(path: str | Path) -> np.ndarray:

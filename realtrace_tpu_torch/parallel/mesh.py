@@ -23,8 +23,9 @@ import torch.distributed as dist
 from torch import Tensor
 
 from realtrace_tpu_torch.core.types import (DIFF_FIELDS, RenderConfig, Scene, default_device,
-                                            map_tensors, tensor_leaves)
-from realtrace_tpu_torch.diff.inverse import _fill_zero_grads, apply_params, scene_params
+                                            map_tensors)
+from realtrace_tpu_torch.diff.inverse import (OptimizerFactory, _fill_zero_grads, apply_params,
+                                              trainable)
 from realtrace_tpu_torch.ops import accel
 from realtrace_tpu_torch.render.camera import Camera
 from realtrace_tpu_torch.render.pipeline import render_tile_buffer
@@ -113,15 +114,16 @@ def _all_reduce(x: Tensor) -> Tensor:
 
 def make_sharded_train_step(scene: Scene, camera: Camera, cfg: RenderConfig,
                             target_image: Tensor, mesh: Mesh, lr: float = 1e-2,
-                            fields=DIFF_FIELDS, resort_chunks: bool | None = None):
+                            fields=DIFF_FIELDS, resort_chunks: bool | None = None,
+                            optimizer: OptimizerFactory | None = None):
     """Sharded inverse rendering: ``(step, params, optimizer)`` as
     ``diff.inverse.make_train_step`` returns them.
 
     Each step renders this rank's tile, takes the local loss
     sum((tile - target_tile)^2) / (H*W*3) and its gradients, all-reduces the
-    gradients (flattened into one buffer) and the loss, then steps
-    ``torch.optim.Adam`` (optax's defaults) on every rank alike; ``step()``
-    returns the reduced loss. ``target_image`` is the top-down (H, W, 3)
+    gradients (flattened into one buffer) and the loss, then steps the
+    optimizer (``make_train_step``'s ``optimizer`` and ``lr``) on every rank
+    alike; ``step()`` returns the reduced loss. ``target_image`` is the top-down (H, W, 3)
     goal. ``resort_chunks`` (default: on when ``tri_vertices`` trains with
     the sweep) rebuilds the chunk ordering every step; the rebuild is
     deterministic on identical parameters, so the ranks stay bit-identical
@@ -138,10 +140,7 @@ def make_sharded_train_step(scene: Scene, camera: Camera, cfg: RenderConfig,
     tgt = tgt.to(device=scene.tri_vertices.device, dtype=scene.dtype)
     if resort_chunks is None:
         resort_chunks = "tri_vertices" in fields and cfg.accel == "sweep"
-    params = map_tensors(lambda x: x.detach().clone().requires_grad_(True),
-                         scene_params(scene, fields))
-    leaves = tensor_leaves(params)
-    optimizer = torch.optim.Adam(leaves, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    params, leaves, optimizer = trainable(scene, fields, optimizer, lr)
 
     def local_loss() -> Tensor:
         s = apply_params(scene, params)

@@ -200,3 +200,36 @@ def test_cli_scenes(scene, obj_file, tmp_path, capsys):
     img = load_png(out)
     assert img.shape == (24, 32, 3) and img.std() > 0.01
     assert "Image saved as" in capsys.readouterr().err
+
+
+def test_cli_default_output_is_timestamped(tmp_path, monkeypatch):
+    """Without --out the CLI writes one 'RealTraceTPU <date>.png' into the
+    working directory, as the JAX CLI does."""
+    monkeypatch.chdir(tmp_path)
+    assert cli.main(["--scene", "sphere_plane", "--width", "16", "--height", "12", "--depth", "1",
+                     "--device", "cpu"]) == 0
+    written = list(tmp_path.iterdir())
+    assert len(written) == 1 and written[0].name.startswith("RealTraceTPU ")
+    assert written[0].suffix == ".png" and load_png(written[0]).shape == (12, 16, 3)
+
+
+@pytest.mark.parametrize("scene", ["primitives", "parallel", "sphere_plane", "glass"])
+def test_cli_refuses_copies_without_a_duplicated_form(scene, obj_file, tmp_path):
+    with pytest.raises(SystemExit) as e:
+        cli.main(["--scene", scene, "--obj", str(obj_file[0]), "--copies", "2", "--device", "cpu",
+                  "--out", str(tmp_path / "x.png")])
+    assert e.value.code != 0 and not (tmp_path / "x.png").exists()
+
+
+@pytest.mark.parametrize("args,tris,spheres", [
+    (["--scene", "serial", "--copies", "3"], 3 * 60, 0),
+    (["--scene", "glass"], 60, 1)], ids=["serial-copies", "glass-obj"])
+def test_cli_obj_scenes(args, tris, spheres, obj_file, tmp_path, capsys):
+    """--scene serial --obj --copies N is duplicated_serial_scene, --scene
+    glass --obj is glass_bob_scene."""
+    out = tmp_path / "obj.png"
+    assert cli.main([*args, "--obj", str(obj_file[0]), "--max-faces", "60", "--width", "24",
+                     "--height", "16", "--depth", "2", "--device", "cpu", "--out", str(out)]) == 0
+    err = capsys.readouterr().err
+    assert f"scene: {tris} tris, {spheres} spheres" in err
+    assert load_png(out).shape == (16, 24, 3)

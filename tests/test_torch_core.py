@@ -12,13 +12,16 @@ import torch
 
 from realtrace_tpu.apps import scenes as jscenes
 from realtrace_tpu.core import vec as jvec
+from realtrace_tpu.core.types import Materials as JMaterials
 from realtrace_tpu.core.types import RenderConfig as JConfig
 from realtrace_tpu.core.types import SceneBuilder as JBuilder
+from realtrace_tpu.io import image as jimage
 from realtrace_tpu.io.obj import load_obj_scene as jload_obj
 from realtrace_tpu_torch.apps import scenes
 from realtrace_tpu_torch.core import vec
 from realtrace_tpu_torch.core.convert import config_from_dict, scene_from_numpy, scene_to_numpy
-from realtrace_tpu_torch.core.types import RenderConfig, SceneBuilder
+from realtrace_tpu_torch.core.types import Materials, RenderConfig, SceneBuilder
+from realtrace_tpu_torch.io import image
 from realtrace_tpu_torch.io.image import load_png, save_png
 from realtrace_tpu_torch.io.obj import load_obj_scene
 
@@ -63,6 +66,35 @@ def test_vec_matches_jax_including_zero_vectors():
     for got, want in cases:
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-12, atol=1e-12)
     assert torch.all(vec.normalize(t64(a))[:4] == 0)
+
+
+VEC_FNS = {
+    "length": lambda m, a, b, c: m.length(a),
+    "det3": lambda m, a, b, c: m.det3(a, b, c),
+    "distance": lambda m, a, b, c: m.distance(a, b),
+    "normalize": lambda m, a, b, c: m.normalize(a),
+    "normalize_eps": lambda m, a, b, c: m.normalize(a, eps=1e-3),
+}
+
+
+@pytest.mark.parametrize("dtype,tol", [(np.float32, 1e-6), (np.float64, 1e-12)],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("fn", sorted(VEC_FNS))
+def test_vec_functions_match_jax(fn, dtype, tol):
+    """length, det3, distance and normalize (with and without the eps floor)
+    on seeded inputs whose first rows are zero vectors and whose next rows are
+    shorter than the floor."""
+    rng = np.random.default_rng(1)
+    a, b, c = (rng.standard_normal((4, 16, 3)).astype(dtype) for _ in range(3))
+    a[0, :4] = 0.0
+    b[0, :2] = 0.0
+    a[0, 4:8] *= 1e-3
+    got = VEC_FNS[fn](vec, torch.from_numpy(a), torch.from_numpy(b), torch.from_numpy(c))
+    want = np.asarray(VEC_FNS[fn](jvec, jnp.asarray(a), jnp.asarray(b), jnp.asarray(c)))
+    assert got.numpy().dtype == want.dtype
+    np.testing.assert_allclose(got.numpy(), want, rtol=tol, atol=tol)
+    if fn.startswith("normalize"):
+        assert torch.all(got[0, :4] == 0)
 
 
 def test_normalize_and_refract_grads_finite_on_dead_lanes():
@@ -113,6 +145,17 @@ def test_builder_matches_jax_builder():
             np.testing.assert_array_equal(got[k], v)
 
 
+@pytest.mark.parametrize("dtype,jdtype", [(torch.float32, jnp.float32),
+                                         (torch.float64, jnp.float64)], ids=["f32", "f64"])
+def test_materials_defaults_equal_jax(dtype, jdtype):
+    for port, jax_ in ((Materials.default, JMaterials.default),
+                       (Materials.obj_default, JMaterials.obj_default)):
+        got, want = port(5, dtype, "cpu"), jax_(5, jdtype)
+        for k in ("ka", "kd", "ks", "kr", "kt", "eta"):
+            assert getattr(got, k).dtype == dtype
+            np.testing.assert_array_equal(getattr(got, k).numpy(), np.asarray(getattr(want, k)))
+
+
 def test_has_dielectrics_reads_the_tensors():
     scene, _ = scenes.sphere_plane_scene(device="cpu")
     assert not scene.has_dielectrics()
@@ -152,6 +195,24 @@ def test_png_roundtrip(tmp_path):
     back = load_png(path)
     assert back.shape == (5, 7, 3)
     np.testing.assert_allclose(back, np.floor(img * 255.0) / 255.0, atol=1e-12)
+
+
+def test_save_timestamped_png_matches_jax(tmp_path, monkeypatch):
+    """The SaveImage name format with a fixed clock: the port and the JAX
+    package write the same file name and the same pixels."""
+    stamp = "Mon Jan 05 14-03-09 2026"
+    monkeypatch.setattr(image.time, "strftime", lambda fmt: stamp)
+    monkeypatch.setattr(jimage.time, "strftime", lambda fmt: stamp)
+    img = np.random.default_rng(4).uniform(0, 1, (6, 9, 3))
+    (tmp_path / "port").mkdir()
+    (tmp_path / "jax").mkdir()
+    got = image.save_timestamped_png(img, directory=tmp_path / "port")
+    want = jimage.save_timestamped_png(img, directory=tmp_path / "jax")
+    assert got.name == want.name == f"RealTraceTPU {stamp}.png"
+    decoded = [np.round(load_png(p) * 255.0).astype(np.uint8) for p in (got, want)]
+    np.testing.assert_array_equal(decoded[0], decoded[1])
+    np.testing.assert_array_equal(decoded[0], image.to_uint8(img))
+    assert image.save_timestamped_png(img, "Frame", tmp_path).name == f"Frame {stamp}.png"
 
 
 def test_obj_loader_matches_jax_loader(tmp_path):

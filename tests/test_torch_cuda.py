@@ -17,7 +17,7 @@ import torch
 from realtrace_tpu_torch.apps import scenes
 from realtrace_tpu_torch.core.types import PARK_DISTANCE, RenderConfig, SceneBuilder
 from realtrace_tpu_torch.ops import accel, sweep
-from realtrace_tpu_torch.render.pipeline import render_with_stats
+from realtrace_tpu_torch.render.pipeline import _tiled_rays, render_with_stats
 
 CFG = RenderConfig(accel="sweep", max_depth=3)
 
@@ -200,6 +200,26 @@ def test_glass_render_on_card_is_bit_identical_twice(cuda):
     a, na = render_with_stats(scene, camera, CFG)
     b, nb = render_with_stats(scene, camera, CFG)
     assert na == nb and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("any_mode", [False, True], ids=["closest", "any"])
+def test_duplicated_serial_scene_hits_equal_twin(cuda, tmp_path, any_mode):
+    """duplicated_serial_scene(4) of mesh_scene's mesh written as an OBJ
+    (43,008 triangles, the streaming kernel's size): its vertices equal
+    duplicated_mesh_scene(4)'s, and both kernels' hits on its primary rays
+    equal the twin's."""
+    tv, _ = scenes.mesh_arrays()
+    path = tmp_path / "mesh.obj"
+    path.write_text("".join("v {:.17g} {:.17g} {:.17g}\n".format(*p) for p in tv.reshape(-1, 3))
+                    + "".join(f"f {k} {k + 1} {k + 2}\n" for k in range(1, 3 * len(tv), 3)))
+    scene, cam = scenes.duplicated_serial_scene(4, path, device=cuda)
+    assert torch.equal(scene.tri_vertices, scenes.duplicated_mesh_scene(4, device=cuda)[0]
+                       .tri_vertices)
+    scene = accel.with_chunks(scene, CFG)
+    pack = sweep.build_pack(scene, CFG)
+    assert not pack.resident
+    ro, rd, _ = _tiled_rays(scenes.make_camera(cam, 256, 128, device=cuda))
+    both_kernels_against_twin(pack, CFG, ro, rd, True, any_mode)
 
 
 def test_default_device_is_the_card(cuda):

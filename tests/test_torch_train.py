@@ -23,6 +23,7 @@ from realtrace_tpu_torch.core.types import RenderConfig, tensor_leaves
 from realtrace_tpu_torch.diff import checkpoint as ckpt
 from realtrace_tpu_torch.diff.inverse import DIFF_FIELDS, apply_params, make_train_step
 from realtrace_tpu_torch.ops import accel
+from realtrace_tpu_torch.parallel import mesh as pmesh
 from realtrace_tpu_torch.render.pipeline import render_buffer
 from test_torch_core import few_torch_threads, to_port  # noqa: F401 (autouse fixture)
 from test_torch_grad import MESH_DETAIL, flat, mesh_jscene
@@ -99,6 +100,59 @@ def test_jax_run_continues_in_the_port(jax_run):
     got = [float(step()) for _ in range(2)]
     np.testing.assert_allclose(got, losses[2:], rtol=1e-9)
     assert_params_close(params, after[3])
+
+
+def test_default_optimizer_is_optax_adam(jax_run):
+    """Neither ``lr`` nor ``optimizer``: Adam at 1e-2, the JAX package's
+    default ``optax.adam(1e-2)``."""
+    jscene, target, cam, losses, after, _ = jax_run
+    scene, camera, tgt = port_train(jscene, target, cam)
+    step, params, opt = make_train_step(scene, camera, RenderConfig(max_depth=DEPTH), tgt)
+    assert type(opt) is torch.optim.Adam
+    got = [float(step()) for _ in range(3)]
+    np.testing.assert_allclose(got, losses[:3], rtol=1e-9)
+    assert_params_close(params, after[2])
+
+
+SGD_LR = 5e-2
+
+
+def sgd(leaves):
+    return torch.optim.SGD(leaves, lr=SGD_LR)
+
+
+@pytest.fixture(scope="module")
+def jax_sgd_run():
+    """Three JAX steps with ``optax.sgd(5e-2)`` on the wrong albedo: the
+    losses and the parameters after the third, as numpy."""
+    jscene, target, cam = wrong_sphere_plane()
+    step, params, opt_state = jmake_train_step(
+        jscene, jscenes.make_camera(cam, W, H, dtype=jnp.float64), JConfig(max_depth=DEPTH),
+        target, optimizer=optax.sgd(SGD_LR))
+    losses = []
+    for _ in range(3):
+        params, opt_state, loss = step(params, opt_state)
+        losses.append(float(loss))
+    return jscene, np.asarray(target), cam, losses, params_to_numpy(params)
+
+
+@pytest.mark.parametrize("sharded", [False, True], ids=["make_train_step", "sharded-world-1"])
+def test_optimizer_factory_matches_optax_sgd(jax_sgd_run, sharded):
+    """The optimizer factory, the counterpart of the JAX optax argument, in
+    the single and the sharded train step (a 1x1 mesh, no process group)."""
+    jscene, target, cam, losses, after = jax_sgd_run
+    scene, camera, tgt = port_train(jscene, target, cam)
+    cfg = RenderConfig(max_depth=DEPTH)
+    if sharded:
+        top_down = torch.flip(tgt.reshape(H, W, 3), dims=(0,))
+        step, params, opt = pmesh.make_sharded_train_step(scene, camera, cfg, top_down,
+                                                          pmesh.make_mesh(1), optimizer=sgd)
+    else:
+        step, params, opt = make_train_step(scene, camera, cfg, tgt, optimizer=sgd)
+    assert type(opt) is torch.optim.SGD
+    got = [float(step()) for _ in range(3)]
+    np.testing.assert_allclose(got, losses, rtol=1e-5)
+    assert_params_close(params, after, rtol=1e-5)
 
 
 def test_resort_chunks_equals_jax_after_vertices_move():
