@@ -29,7 +29,8 @@ and the script exits 1 without printing a result:
    wavefront, rendered twice: bit-equal); the JAX bench's OBJ workloads on
    mesh_scene's mesh written as an OBJ: duplicated_serial_scene(8) (its
    vertices equal duplicated_mesh_scene(8)'s; streaming kernel only) and
-   glass_bob_scene (resident kernel only; rendered twice: bit-equal); each
+   glass_bob_scene (resident kernel only; rendered twice: bit-equal);
+   mesh_scene at depth 10 (resident kernel only, more rays than depth 3); each
    against the same render through the twin (image error > 1e-4 on at most
    0.2% of pixels; the twin renders from the exact lists, the kernels from
    the card's list policy); the first three frames under the other list
@@ -77,7 +78,13 @@ and the script exits 1 without printing a result:
    in one trace_capture); the viewer's batched script against its per-frame
    script (256x128, equal last frame); flashlight and stability on the card
    against the CPU; mesh_scene's triangles through an OBJ file, native parser
-   against Python parser, and parallel_obj_scene rendered at 1080p.
+   against Python parser, and parallel_obj_scene rendered at 1080p;
+8. the bench: ``python -m realtrace_tpu_torch.apps.bench`` at 1920x1080 with
+   3 samples a series, every leg (headline, hit-heavy, grad at both framings,
+   train, branching, stream, bigscene, the big-scene curve, depth 10): it
+   exits 0, each metric is printed once, the headline last, every value is
+   finite and positive and every line carries its statistics and the card;
+   its lines are echoed.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -86,6 +93,7 @@ Exits 2 without a CUDA card.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
@@ -605,6 +613,57 @@ TRAIN_FIELDS = ("tri_vertices", "tri_colors", "tri_materials", "lights")   # ben
 FD_RTOL = 5e-3                                                             # tests/test_grad.py
 
 
+BENCH_LINES = {"headline": 1, "hit-heavy": 1, "grad": 2, "train": 1, "branching": 1,
+               "stream": 1, "bigscene": 1, "bigcurve": 3, "depth10": 1}
+BENCH_KEYS = ("median_ms", "q1_ms", "q3_ms", "n", "k1_per_frame", "k2_per_frame",
+              "peak_device_bytes", "busy_ms", "idle_share")
+
+
+def bench_run(card, reps=3, timeout=600):
+    """Phase 8: ``python -m realtrace_tpu_torch.apps.bench`` at 1920x1080 with
+    ``--reps`` samples a series: it exits 0, every leg prints its metrics once
+    each, the headline last, every value finite and positive, every line with
+    its median, quartiles, n, rays and launches a frame, peak memory, busy ms,
+    idle share and the card. Returns the K1 and K2 launches of its timed
+    samples."""
+    import math
+
+    cmd = [sys.executable, "-m", "realtrace_tpu_torch.apps.bench", "--width", str(W),
+           "--height", str(H), "--reps", str(reps)]
+    t0 = time.perf_counter()
+    try:
+        run = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=timeout)
+        rc, out, err = run.returncode, run.stdout, run.stderr
+    except subprocess.TimeoutExpired as e:
+        rc, out, err = "timeout", str(e.stdout or ""), str(e.stderr or "")
+    wall = time.perf_counter() - t0
+    recs = []
+    for line in out.splitlines():
+        log(f"  | {line}")
+        try:
+            recs.append(json.loads(line))
+        except ValueError:
+            recs.append({"not_json": line})
+    if rc != 0:
+        log(f"  bench stderr (tail): {err[-3000:]}")
+    check(rc == 0 and not any("leg_failed" in r for r in recs),
+          f"the bench ran every leg, exit {rc}, {wall:.1f} s ({len(recs)} lines)")
+    legs = [r.get("leg") for r in recs]
+    check(all(legs.count(leg) == n for leg, n in BENCH_LINES.items())
+          and len(recs) == sum(BENCH_LINES.values())
+          and len({r.get("metric") for r in recs}) == len(recs)
+          and bool(recs) and recs[-1].get("leg") == "headline",
+          "each bench metric appears exactly once, the headline last")
+    bad = [r.get("metric") for r in recs
+           if not (math.isfinite(r.get("value", math.nan)) and r["value"] > 0
+                   and all(r.get(k) is not None for k in BENCH_KEYS)
+                   and r.get("rays_per_frame", 0) > 0 and r.get("device") == card)]
+    check(not bad, f"every bench value is finite and positive, with its statistics and the "
+                   f"card ({bad})")
+    return (sum(r.get("k1_per_frame", 0) * r.get("n", 0) for r in recs),
+            sum(r.get("k2_per_frame", 0) * r.get("n", 0) for r in recs))
+
+
 def grad_leaves(scene, camera, cfg, fields=GRAD_FIELDS):
     """``image_grad`` (the mean pixel) as (loss, flat gradient tensors, peak
     device bytes of the call)."""
@@ -632,8 +691,6 @@ def finite_differences(dev, cfg):
     the largest gradient whose steps leave every query's result unchanged
     (hits are decided in f32, so a step that moved one would measure a
     visibility jump), a vertex colour and a light intensity."""
-    import dataclasses
-
     import torch
 
     from realtrace_tpu_torch.apps import scenes
@@ -706,8 +763,6 @@ def finite_differences(dev, cfg):
 def backward_and_train(mesh, cam, camera, cfg, forward_launches, card, dev):
     """Phase 6. Returns the launches of each kernel on the training path
     (``image_grad`` of the 1080p frame and five train steps)."""
-    import dataclasses
-
     import torch
 
     from realtrace_tpu_torch.apps import scenes
@@ -809,15 +864,14 @@ def main() -> int:
     from realtrace_tpu_torch.core.types import RenderConfig, SceneBuilder
     from realtrace_tpu_torch.ops import accel, cuda_build, sweep
     from realtrace_tpu_torch.render.pipeline import _tiled_rays, render_with_stats
+    from realtrace_tpu_torch.utils import profiling
 
     sys.path.insert(0, str(ROOT / "tests"))
     from oracle.cpu_reference import OracleRenderer
     from oracle.scene128 import CAM as CAM128, DEPTH as DEPTH128, SIZE as SIZE128
 
     dev = torch.device("cuda", 0)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         timeout=60).stdout.strip().splitlines()
+    card = profiling.card_name()
     t_start = time.perf_counter()
 
     def phase(title):
@@ -827,7 +881,6 @@ def main() -> int:
     log(f"  python {sys.version.split()[0]}, torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, device {torch.cuda.get_device_name(0)}, "
         f"{torch.cuda.device_count()} visible")
-    card = smi[0] if smi else "nvidia-smi: no output"
     log(card)
 
     phase("2 build")
@@ -927,6 +980,12 @@ def main() -> int:
     check(n_go == n_go2 and torch.equal(img_go, img_go2),
           "glass_bob_scene renders twice bit-identically")
     del img_go, img_go2
+
+    cfg10 = dataclasses.replace(cfg, max_depth=10)
+    _, n_10, k1_10, k2 = main_path("mesh_scene depth 10", mesh, camera, cfg10)
+    check(k1_10 > 0 and k2 == 0 and n_10 > n_m,
+          f"mesh_scene at depth 10 launched the resident kernel only ({k1_10}), {n_10} rays "
+          f"against {n_m} at depth {DEPTH}")
 
     for name, scene, img_b, n_b in (("mesh_scene", mesh, img_m, n_m),
                                     ("duplicated_mesh_scene(8)", x8, img_8, n_8),
@@ -1040,6 +1099,9 @@ def main() -> int:
     p7[0] += apps_runs(mesh, cam, cfg, dev, card)
     log(f"  phase 7: {time.perf_counter() - t7:.1f} s")
 
+    phase("8 the bench (python -m realtrace_tpu_torch.apps.bench)")
+    bench_launches = bench_run(card)
+
     if failures:
         log(f"FAILED: {failures}")
         return 1
@@ -1049,13 +1111,15 @@ def main() -> int:
         {"name": "sweep", "route": "cuda", "source": "realtrace_tpu_torch/csrc/sweep.cu",
          "replaces": "realtrace_tpu/ops/pallas/trace.py:164", "launches": launches,
          "obj_scene_launches": k1_obj, "train_launches": train_launches[0],
-         "phase7_launches": p7[0], "max_abs_err": max(errs),
+         "phase7_launches": p7[0], "depth10_launches": k1_10,
+         "bench_launches": bench_launches[0], "max_abs_err": max(errs),
          **k1_row},
         {"name": "sweep_stream", "route": "cuda",
          "source": "realtrace_tpu_torch/csrc/sweep_stream.cu",
          "replaces": "realtrace_tpu/ops/pallas/trace.py:228", "launches": stream_launches,
          "obj_scene_launches": k2_obj, "train_launches": train_launches[1],
-         "phase7_launches": p7[1], "max_abs_err": max(errs_stream), **k2_row}]}))
+         "phase7_launches": p7[1], "depth10_launches": 0, "bench_launches": bench_launches[1],
+         "max_abs_err": max(errs_stream), **k2_row}]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

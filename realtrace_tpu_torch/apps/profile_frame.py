@@ -41,7 +41,6 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
-import subprocess
 import time
 
 import torch
@@ -51,6 +50,7 @@ from realtrace_tpu_torch.core.types import RenderConfig
 from realtrace_tpu_torch.diff import inverse
 from realtrace_tpu_torch.ops import accel, sweep
 from realtrace_tpu_torch.render import pipeline, shade
+from realtrace_tpu_torch.utils import profiling
 
 # (module, function, layer name); hit_attributes and closest_query are looked
 # up by shade under its own names
@@ -150,8 +150,7 @@ def main(argv=None) -> int:
         sweep.INTERVAL_LISTS_ON_CUDA = args.lists == "interval"
 
     dev = torch.device("cuda", 0)
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, timeout=60).stdout.strip()
+    card = profiling.card_name()
     cfg = RenderConfig(max_depth=args.depth, accel="sweep")
     if args.scene == "glass":
         scene, cam = scenes.glass_mesh_scene(device=dev)
@@ -208,15 +207,7 @@ def main(argv=None) -> int:
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         total = run()
-    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.device_time for e in events) / 1e3
-    by_name = {}
-    for e in events:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time / 1e3
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    out = dict(tag, kind="profile", total_ms=total, device_events=len(events), busy_ms=busy,
-               idle_share=1.0 - busy / total if events else None,
-               top_ms={k[:60]: v for k, v in top})
+    out = dict(tag, kind="profile", total_ms=total, **profiling.device_busy(prof, total))
     if args.backward:
         prefix = "autograd::engine::evaluate_function: "
         nodes = [(e.key[len(prefix):], getattr(e, "device_time_total", None)

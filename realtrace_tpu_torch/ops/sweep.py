@@ -134,10 +134,15 @@ class AccelPack:
         return self.consts.shape[0]
 
     @property
+    def table_bytes(self) -> int:
+        """The constant table's bytes as the JAX layout counts them (4 rows of
+        NCOEF floats per triangle), the measure ``RESIDENT_LIMIT`` bounds."""
+        return self.n_chunks * 4 * self.chunk_size * NCOEF * 4
+
+    @property
     def resident(self) -> bool:
         """Whether queries take the resident kernel (``RESIDENT_LIMIT``)."""
-        c = self.chunk_size
-        return self.n_chunks * 4 * c * NCOEF * 4 <= RESIDENT_LIMIT and (4 * c) % 128 == 0
+        return self.table_bytes <= RESIDENT_LIMIT and (4 * self.chunk_size) % 128 == 0
 
 
 def pack_for(perm: Tensor, tri_vertices: Tensor, c: int) -> AccelPack:

@@ -10,6 +10,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import logging
+import subprocess
 import time
 from dataclasses import dataclass, field
 from pathlib import Path
@@ -83,6 +84,36 @@ def trace_capture(logdir: str | Path):
     with prof:
         yield prof
     prof.export_chrome_trace(str(Path(logdir) / "trace.json"))
+
+
+def card_name() -> str:
+    """The card's name and power limit, as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` gives them (its first
+    line: card 0)."""
+    try:
+        out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True, text=True,
+                             timeout=60).stdout.strip()
+    except FileNotFoundError:
+        return "nvidia-smi: not found"
+    return out.splitlines()[0] if out else "nvidia-smi: no output"
+
+
+def device_busy(prof, total_ms: float, top: int = 8) -> dict:
+    """What the card did during one profiled run of ``total_ms`` host ms, from
+    a finished ``torch.profiler.profile``: ``device_events`` (its kernels and
+    copies), ``busy_ms`` (the sum of their device times), ``idle_share`` (1 -
+    busy / total) and ``top_ms`` (the ``top`` names by device ms). Without
+    device events (a CPU run) ``busy_ms`` and ``idle_share`` are None."""
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.device_time for e in events) / 1e3
+    by_name: dict = {}
+    for e in events:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time / 1e3
+    top_ms = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    return dict(device_events=len(events), busy_ms=busy if events else None,
+                idle_share=1.0 - busy / total_ms if events else None,
+                top_ms={k[:60]: v for k, v in top_ms})
 
 
 def timed(fn, *args, repeats: int = 5, warmup: int = 1):
