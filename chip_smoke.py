@@ -39,9 +39,9 @@ and the script exits 1 without printing a result:
    pixels); full_primitive_scene (a dielectric cylinder) against the NumPy
    oracle in f64 (error > 1e-6 on at most 0.2%) and in f32 (error > 1e-4 on
    at most 2%);
-5. timing with CUDA events after one warm-up frame: mesh_scene's serial and
-   close framings, the x4, x8, x16 and glass frames, the two OBJ frames of
-   phase 4; each kernel beside the
+5. timing with CUDA events after one warm-up frame, of the frames the bench
+   (phase 8) does not time: x4, x8 and x16 at depth 3 and the two OBJ frames
+   of phase 4; each kernel beside the
    twin on its 1080p primary query, with the least time the card could take
    for the (ray, triangle) pairs its warps tested, and on the reflection
    and shadow wavefronts; each of these queries runs under the card's list
@@ -60,8 +60,8 @@ and the script exits 1 without printing a result:
    intensity, rtol 5e-3, visibility checked unchanged); five Adam steps at
    1080p with the chunk re-sort every step (vertices, colours, materials,
    lights; perturbed colours): the loss falls, every parameter stays finite;
-   timing with CUDA events (forward, value-and-grad and their ratio at both
-   framings, the train step, peak memory). Information, not a benchmark;
+   the peak memory of both backward designs at the close framing too (the
+   bench, phase 8, times the backward and the train step);
 7. progressive, sharded and apps, each path with both launch counts set to 0
    just before and read just after: ProgressiveRenderer on mesh_scene and on
    duplicated_mesh_scene(8) at 1920x1080, depth 3, band 120 (9 bands), each
@@ -625,7 +625,7 @@ def bench_run(card, reps=3, timeout=600):
     each, the headline last, every value finite and positive, every line with
     its median, quartiles, n, rays and launches a frame, peak memory, busy ms,
     idle share and the card. Returns the K1 and K2 launches of its timed
-    samples."""
+    samples, as the bench counts them (each series once)."""
     import math
 
     cmd = [sys.executable, "-m", "realtrace_tpu_torch.apps.bench", "--width", str(W),
@@ -660,8 +660,10 @@ def bench_run(card, reps=3, timeout=600):
                    and r.get("rays_per_frame", 0) > 0 and r.get("device") == card)]
     check(not bad, f"every bench value is finite and positive, with its statistics and the "
                    f"card ({bad})")
-    return (sum(r.get("k1_per_frame", 0) * r.get("n", 0) for r in recs),
-            sum(r.get("k2_per_frame", 0) * r.get("n", 0) for r in recs))
+    head = recs[-1] if recs else {}
+    run = head.get("run_k1_launches", 0), head.get("run_k2_launches", 0)
+    check(run[0] > 0 and run[1] > 0, f"the bench counted K1 and K2 over its timed samples {run}")
+    return run
 
 
 def grad_leaves(scene, camera, cfg, fields=GRAD_FIELDS):
@@ -767,7 +769,7 @@ def backward_and_train(mesh, cam, camera, cfg, forward_launches, card, dev):
 
     from realtrace_tpu_torch.apps import scenes
     from realtrace_tpu_torch.core.types import tensor_leaves
-    from realtrace_tpu_torch.diff.inverse import image_grad, make_train_step
+    from realtrace_tpu_torch.diff.inverse import make_train_step
     from realtrace_tpu_torch.ops import accel, sweep
     from realtrace_tpu_torch.render.pipeline import render_buffer
 
@@ -830,24 +832,11 @@ def backward_and_train(mesh, cam, camera, cfg, forward_launches, card, dev):
           "the 1080p train step re-sorts every step, the loss falls, the parameters stay finite")
     check(path[0] > 0, "the training path launched the resident kernel")
 
-    log(f"  timing (CUDA events; {card}):")
-    for name, position in (("serial", cam["position"]), ("close", CLOSE_POSITION)):
-        cam_f = scenes.make_camera(dict(cam, position=position), W, H, device=dev)
-
-        def forward():
-            with torch.no_grad():
-                render_buffer(mesh, cam_f, cfg)
-
-        fwd_ms = cuda_ms(forward, reps=3)
-        grad_ms = cuda_ms(lambda: image_grad(mesh, cam_f, cfg, fields=GRAD_FIELDS), reps=3)
-        peaks = [grad_leaves(mesh, cam_f, dataclasses.replace(cfg, remat=r))[2] / gib
-                 for r in (True, False)]
-        log(f"    {name} framing {position}: forward {fwd_ms:.2f} ms, value-and-grad "
-            f"{grad_ms:.2f} ms, ratio {grad_ms / fwd_ms:.3f}; peak {peaks[0]:.3f} GiB with remat, "
-            f"{peaks[1]:.3f} GiB without")
-    step_ms = cuda_ms(step, reps=3)
-    log(f"    train step {W}x{H} serial framing ({', '.join(TRAIN_FIELDS)}, Adam, re-sort): "
-        f"{step_ms:.2f} ms")
+    close = scenes.make_camera(dict(cam, position=CLOSE_POSITION), W, H, device=dev)
+    peaks = [grad_leaves(mesh, close, dataclasses.replace(cfg, remat=r))[2] / gib
+             for r in (True, False)]
+    log(f"  the same at the close framing {CLOSE_POSITION}: remat {peaks[0]:.3f} GiB, without "
+        f"remat {peaks[1]:.3f} GiB")
     return path
 
 
@@ -1038,10 +1027,6 @@ def main() -> int:
             f"{sweep.sweep.launches // (reps + 1)} resident and "
             f"{sweep.sweep.stream_launches // (reps + 1)} streaming launches")
 
-    for name, position in (("serial", cam["position"]), ("close", CLOSE_POSITION)):
-        frame_time(f"mesh_scene, {name} framing {position}", mesh,
-                   scenes.make_camera(dict(cam, position=position), W, H, device=dev), reps=3)
-    frame_time("glass_mesh_scene", glass, camera, reps=3)
     frame_time("glass_bob_scene (mesh_scene's mesh from an OBJ)", glass_obj, camera, reps=3)
     frame_time("duplicated_serial_scene(8) (the same OBJ)", x8_obj, camera, reps=3)
     del glass, glass_obj, x8_obj

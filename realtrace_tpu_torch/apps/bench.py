@@ -49,14 +49,17 @@ Output: one JSON line per metric on stdout, ``{"metric", "value", "unit",
 "vs_baseline"}`` as ``bench.py``'s ``emit`` prints them (``vs_baseline`` is
 null: the JAX bench's baseline is a TPU target), plus the series' median,
 quartiles, n and samples (ms), rays and kernel launches per frame, the
-peak device memory of the line's work, the profiled frame's busy ms and idle
-share, and ``device``: the card's name and power limit as ``nvidia-smi``
-gives them, or ``cpu`` (and then the metric's name starts with ``[cpu]``).
-The headline's line is printed last. A leg that raises prints
-``{"leg_failed": name, "error": ...}`` (its traceback on stderr) and the
-other legs still run; no leg is retried, and the exit code is 1 when any leg
-failed. Progress goes to stderr. Without a card and without ``--device cpu``
-it raises: nothing falls back.
+peak device memory of the line's series (``peak_device_bytes``: the peak
+above what was allocated when the series began, so that what earlier legs
+keep is not counted), the profiled frame's busy ms and idle share, and
+``device``: the card's name and power limit as ``nvidia-smi`` gives them, or
+``cpu`` (and then the metric's name starts with ``[cpu]``). The headline's
+line is printed last, with ``run_k1_launches`` and ``run_k2_launches``: the
+sweep launches of every timed sample of the run, each series counted once.
+A leg that raises prints ``{"leg_failed": name, "error": ...}`` (its
+traceback on stderr) and the other legs still run; no leg is retried, and
+the exit code is 1 when any leg failed. Progress goes to stderr. Without a
+card and without ``--device cpu`` it raises: nothing falls back.
 """
 from __future__ import annotations
 
@@ -178,10 +181,11 @@ class Bench:
         self.prefix = "" if self.cuda else "[cpu] "
         self.size = f"{args.width}x{args.height}"
         self.scenes: dict = {}     # (kind, copies, chunk_size) -> build_scene's result
-        self.frames: dict = {}     # Workload -> its forward frames' series
+        self.frames: dict = {}     # Workload -> its forward frames' series (no image)
         self.named: dict = {}      # Workload -> the first metric that printed its frames
         self.held: dict | None = None
         self.failed: list[str] = []
+        self.run_launches = [0, 0]   # K1, K2 over every timed sample of the run
 
     # -- measurement -------------------------------------------------------
 
@@ -200,10 +204,12 @@ class Bench:
     def series(self, run, reps: int, check, tag: str) -> dict:
         """``WARMUP`` untimed calls of ``run``, ``reps`` timed ones (each
         result handed to ``check`` after its clock stops) and, on the card,
-        one under ``torch.profiler``; the peak device memory of all of them.
-        Every timed call must launch the same sweep kernels."""
+        one under ``torch.profiler``; the peak device memory of all of them above
+        what was allocated before them. Every timed call must launch the same
+        sweep kernels."""
         if self.cuda:
             torch.cuda.reset_peak_memory_stats(self.dev)
+            held = torch.cuda.memory_allocated(self.dev)
         for _ in range(WARMUP):
             run()
         ms, launches = [], set()
@@ -215,6 +221,8 @@ class Bench:
             self.sync()
             ms.append((time.perf_counter() - t0) * 1e3)
             launches.add((sweep.sweep.launches, sweep.sweep.stream_launches))
+            self.run_launches[0] += sweep.sweep.launches
+            self.run_launches[1] += sweep.sweep.stream_launches
             check(result)
         _require(len(launches) == 1, f"{tag}: launches differ between samples: {launches}")
         k1, k2 = launches.pop()
@@ -231,7 +239,7 @@ class Bench:
             busy = profiling.device_busy(prof, total)
             s.update(profiled_ms=total, busy_ms=busy["busy_ms"], idle_share=busy["idle_share"],
                      device_events=busy["device_events"],
-                     peak_device_bytes=torch.cuda.max_memory_allocated(self.dev))
+                     peak_device_bytes=torch.cuda.max_memory_allocated(self.dev) - held)
         self.log(f"{tag}: median {s['median_ms']:.2f} ms (q1 {s['q1_ms']:.2f}, q3 "
                  f"{s['q3_ms']:.2f}, n {reps}), K1 {k1} K2 {k2} a sample, busy "
                  f"{s['busy_ms']} ms of {s['profiled_ms']}")
@@ -275,9 +283,11 @@ class Bench:
                     residency_mb=pack.table_bytes / 1e6)
 
     def forward(self, w: Workload, leg: str) -> dict:
-        """A workload's frame series, timed once per run: a later leg reuses it."""
+        """A workload's frame series, timed once per run: a later leg reuses it
+        (its statistics; the image is not kept)."""
         if w not in self.frames:
-            self.frames[w] = self.frame_series(w, self.reps(leg), f"{leg} x{w.copies}")
+            s = self.frame_series(w, self.reps(leg), f"{leg} x{w.copies}")
+            self.frames[w] = {k: v for k, v in s.items() if k != "image"}
         return self.frames[w]
 
     # -- output --------------------------------------------------------------
@@ -341,7 +351,7 @@ class Bench:
                       bwd["median_ms"] / fwd["median_ms"], "x", bwd,
                       forward_ms=fwd["median_ms"], backward_ms=bwd["median_ms"],
                       rays_per_frame=fwd["rays_per_frame"],
-                      forward={k: v for k, v in fwd.items() if k != "image"})
+                      forward=fwd)
 
     def leg_train(self):
         w = leg_workloads("train", self.args.depth)[0]
@@ -423,6 +433,8 @@ class Bench:
                 print(json.dumps({"leg_failed": leg, "error": f"{type(e).__name__}: {e}"[:300]}),
                       file=self.out, flush=True)
         if self.held is not None:
+            self.held.update(run_k1_launches=self.run_launches[0],
+                             run_k2_launches=self.run_launches[1])
             print(json.dumps(self.held), file=self.out, flush=True)
         return 1 if self.failed else 0
 

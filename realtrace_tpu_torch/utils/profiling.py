@@ -20,6 +20,7 @@ import torch
 from realtrace_tpu_torch.core.types import tensor_leaves
 
 log = logging.getLogger("realtrace_tpu_torch")
+TOP_NAMES = 8      # device_busy's top_ms: the names that took the most device time
 
 
 def block(x):
@@ -99,18 +100,18 @@ def card_name() -> str:
     return out.splitlines()[0] if out else "nvidia-smi: no output"
 
 
-def device_busy(prof, total_ms: float, top: int = 8) -> dict:
+def device_busy(prof, total_ms: float) -> dict:
     """What the card did during one profiled run of ``total_ms`` host ms, from
     a finished ``torch.profiler.profile``: ``device_events`` (its kernels and
     copies), ``busy_ms`` (the sum of their device times), ``idle_share`` (1 -
-    busy / total) and ``top_ms`` (the ``top`` names by device ms). Without
+    busy / total) and ``top_ms`` (the ``TOP_NAMES`` names by device ms). Without
     device events (a CPU run) ``busy_ms`` and ``idle_share`` are None."""
     events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.device_time for e in events) / 1e3
     by_name: dict = {}
     for e in events:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time / 1e3
-    top_ms = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    top_ms = sorted(by_name.items(), key=lambda kv: -kv[1])[:TOP_NAMES]
     return dict(device_events=len(events), busy_ms=busy if events else None,
                 idle_share=1.0 - busy / total_ms if events else None,
                 top_ms={k[:60]: v for k, v in top_ms})

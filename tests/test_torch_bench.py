@@ -126,8 +126,10 @@ def test_bench_runs_on_cpu():
 @pytest.fixture
 def quick_renders(monkeypatch):
     """Stand-ins for the render, the gradient and the train step (the real
-    scenes are built, nothing is rendered): every leg runs in seconds."""
+    scenes are built, nothing is rendered): every leg runs in seconds. A
+    stand-in frame counts one sweep launch a level."""
     def render(scene, camera, cfg):
+        sweep.sweep.launches += cfg.max_depth
         return torch.full((camera.height, camera.width, 3), 0.5), 100 * cfg.max_depth
 
     def image_grad(scene, camera, cfg, loss_fn=None, fields=()):
@@ -162,6 +164,11 @@ def test_every_leg_emits_its_lines(quick_renders):
     assert curve[0]["same_samples_as"] == by_leg["bigscene"]["metric"]
     assert curve[0]["samples_ms"] == by_leg["bigscene"]["samples_ms"]
     assert "same_samples_as" not in curve[1]
+    # the run's launches count every timed series once: x4 once, leg 6's resident and forced
+    # series both, the forward frames that leg 3 reuses once
+    series_depths = [3, 3, 3, 2, 2, 2, 2, 2, 10]    # 1, 2, 5, 6 (two), 7, 8 (x8, x16), 9
+    assert by_leg["headline"]["run_k1_launches"] == 3 * sum(series_depths)
+    assert by_leg["headline"]["run_k2_launches"] == 0
     assert {r["leg"] for r in recs if " framing (" in r["metric"]} == {
         "headline", "hit-heavy", "grad", "depth10"}
 
@@ -258,8 +265,11 @@ def test_device_busy_sums_the_device_events():
 
     prof = SimpleNamespace(events=lambda: [event("rt_sweep", 3000.0), event("rt_sweep", 1000.0),
                                            event("memcpy", 500.0), event("host", 9e6, False)])
-    got = profiling.device_busy(prof, total_ms=10.0, top=1)
+    got = profiling.device_busy(prof, total_ms=10.0)
     assert got == dict(device_events=3, busy_ms=4.5, idle_share=0.55,
-                       top_ms={"rt_sweep": 4.0})
+                       top_ms={"rt_sweep": 4.0, "memcpy": 0.5})
+    assert list(got["top_ms"]) == ["rt_sweep", "memcpy"]
+    many = SimpleNamespace(events=lambda: [event(f"k{i}", 100.0 * i) for i in range(1, 11)])
+    assert list(profiling.device_busy(many, 10.0)["top_ms"]) == [f"k{i}" for i in range(10, 2, -1)]
     none = profiling.device_busy(SimpleNamespace(events=lambda: [event("host", 1.0, False)]), 10.0)
     assert none["busy_ms"] is None and none["idle_share"] is None and none["device_events"] == 0
