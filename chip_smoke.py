@@ -84,7 +84,22 @@ and the script exits 1 without printing a result:
    train, branching, stream, bigscene, the big-scene curve, depth 10): it
    exits 0, each metric is printed once, the headline last, every value is
    finite and positive and every line carries its statistics and the card;
-   its lines are echoed.
+   its lines are echoed;
+9. the JAX package's other query modes and the chunked accel, each path with
+   both launch counts set to 0 just before and read just after: mesh_scene
+   at 1920x1080, depth 3, in the default mode, the fully merged mode
+   (``shadow_any_mode=False``: 5 K1 a frame, one closest query a level) and
+   the unmerged mode (``merge_queries=False``: 8 K1, one shadow query per
+   light), each against its twin render (as phase 4) and against the
+   default mode's image (error > 1e-4 on at most 0.2% of pixels, pixels not
+   bit-equal counted, equal rays), with a host-timed median of 10
+   synchronised frames; duplicated_mesh_scene(8) in the fully merged mode
+   (K2 only, 5 a frame) against its twin and the default image; the chunked
+   accel (the JAX bench's headline config: ray blocks of 8192, shortlist 96)
+   on mesh_scene's 256x192 primary, reflection and shadow rays, its indices
+   on the card equal to those on the CPU and its distances bit-equal, and
+   the 1080p chunked frame (no sweep launched) with its host-timed median of
+   5 frames and its share of pixels over 1e-4 off the sweep's image.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -666,6 +681,114 @@ def bench_run(card, reps=3, timeout=600):
     return run
 
 
+MODES = {"default": {}, "fully merged": {"shadow_any_mode": False},
+         "unmerged": {"merge_queries": False}}
+MODE_K_A_FRAME = {"default": 8, "fully merged": 5, "unmerged": 8}   # depth 3, one light
+
+
+def host_median(fn, reps: int):
+    """Median and samples (ms) of ``reps`` host-timed calls of ``fn``, each
+    ending in ``torch.cuda.synchronize()``, after one untimed call."""
+    import statistics
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ms), ms
+
+
+def against(name, img, n, ref, n_ref, what):
+    """Hold an image and its rays to another render's (``what`` names it):
+    error > IMAGE_TOL on at most IMAGE_FRAC of pixels, equal rays; the
+    pixels that are not bit-equal are counted."""
+    err = (img - ref).abs().amax(-1)
+    over = int((err > IMAGE_TOL).sum())
+    unequal = int((img != ref).any(-1).sum())
+    log(f"  {name} against {what}: {over} pixels > {IMAGE_TOL}, {unequal} not bit-equal, max "
+        f"{float(err.max()):.3e}, rays {n} vs {n_ref}")
+    check(over <= IMAGE_FRAC * err.numel() and n == n_ref,
+          f"{name}: its image equals {what} (<= {IMAGE_FRAC}), equal rays")
+
+
+def query_modes(mesh, camera, cfg, dev, card):
+    """Phase 9. Returns the K1 launches of the fully merged and unmerged
+    mesh frames and the K2 launches of the fully merged x8 frame."""
+    import torch
+
+    from realtrace_tpu_torch.apps import scenes
+    from realtrace_tpu_torch.ops import accel, sweep
+    from realtrace_tpu_torch.render.pipeline import _tiled_rays, render_with_stats
+
+    frames, launches = {}, {}
+    for mode, knobs in MODES.items():
+        cfg_m = dataclasses.replace(cfg, **knobs)
+        img, n, k1, k2 = main_path(f"mesh_scene, {mode} mode", mesh, camera, cfg_m)
+        check(k1 == MODE_K_A_FRAME[mode] and k2 == 0,
+              f"mesh_scene, {mode} mode: {k1} K1 a frame (want {MODE_K_A_FRAME[mode]}), {k2} K2")
+        med, ms = host_median(lambda: render_with_stats(mesh, camera, cfg_m), reps=10)
+        log(f"  mesh_scene {W}x{H} depth {cfg.max_depth}, {mode} mode: median {med:.2f} ms of "
+            f"10 host-timed frames (min {min(ms):.2f}, max {max(ms):.2f}), {k1} K1 a frame, "
+            f"{n} rays ({card})")
+        if mode != "default":
+            against(f"mesh_scene, {mode} mode", img, n, *frames["default"], "the default mode")
+        frames[mode], launches[mode] = (img, n), k1
+
+    x8, _ = scenes.duplicated_mesh_scene(8, device=dev)
+    x8 = accel.with_chunks(x8, cfg)
+    cfg_f = dataclasses.replace(cfg, **MODES["fully merged"])
+    img, n, k1, k2_merged = main_path("duplicated_mesh_scene(8), fully merged mode", x8, camera,
+                                      cfg_f)
+    check(k1 == 0 and k2_merged == MODE_K_A_FRAME["fully merged"],
+          f"x8, fully merged mode: K2 only, {k2_merged} a frame")
+    med, ms = host_median(lambda: render_with_stats(x8, camera, cfg_f), reps=10)
+    log(f"  duplicated_mesh_scene(8), fully merged mode: median {med:.2f} ms of 10 host-timed "
+        f"frames (min {min(ms):.2f}, max {max(ms):.2f}), {k2_merged} K2 a frame ({card})")
+    against("duplicated_mesh_scene(8), fully merged mode", img, n,
+            *render_with_stats(x8, camera, cfg), "the default mode")
+    del x8, img
+
+    # the chunked accel: the JAX bench's headline config (bench.py:386-390)
+    cfg_c = dataclasses.replace(cfg, accel="chunked", ray_block=8192)
+    small = scenes.make_camera(scenes.SERIAL_CAM, 256, 192, device="cpu")
+    mesh_cpu = accel.with_chunks(mesh.to("cpu"), cfg_c)
+    check(torch.equal(mesh_cpu.tri_chunk_perm, mesh.tri_chunk_perm.cpu()),
+          "the chunk permutation built on the CPU equals the card's")
+    ro, rd, _ = _tiled_rays(small)
+    refl, shad = secondary_rays(mesh_cpu, None, cfg_c, ro, rd)
+    for name, o, d in (("primary", ro, rd), ("reflection", *refl), ("shadow", *shad)):
+        t_cpu, i_cpu = accel.closest_triangle(mesh_cpu, o, d, cfg_c)
+        t_card, i_card = accel.closest_triangle(mesh, o.to(dev), d.to(dev), cfg_c)
+        same_i = torch.equal(i_card.cpu(), i_cpu)
+        same_t = torch.equal(t_card.cpu(), t_cpu)
+        log(f"  chunked 256x192 {name} query, {o.shape[0]} rays: {int((i_cpu >= 0).sum())} hits, "
+            f"indices {'equal' if same_i else 'NOT equal'} on the card and the CPU "
+            f"({int((i_card.cpu() != i_cpu).sum())} differ), distances "
+            f"{'bit-equal' if same_t else 'not bit-equal'}")
+        check(same_i and same_t, f"chunked {name} query: the card's hits equal the CPU's")
+    sweep.sweep.launches = sweep.sweep.stream_launches = 0
+    img_c, n_c = render_with_stats(mesh, camera, cfg_c)
+    torch.cuda.synchronize()
+    kc = (sweep.sweep.launches, sweep.sweep.stream_launches)
+    check(kc == (0, 0) and tuple(img_c.shape) == (H, W, 3) and bool(torch.isfinite(img_c).all()),
+          f"the chunked 1080p frame is finite and launches no sweep kernel {kc}")
+    med, ms = host_median(lambda: render_with_stats(mesh, camera, cfg_c), reps=5)
+    img_d, n_d = frames["default"]
+    err = (img_c - img_d).abs().amax(-1)
+    share = float((err > IMAGE_TOL).float().mean())
+    log(f"  chunked mesh_scene {W}x{H} depth {cfg.max_depth} (ray blocks of 8192, shortlist "
+        f"{cfg_c.shortlist}): median {med:.2f} ms of 5 host-timed frames (min {min(ms):.2f}, "
+        f"max {max(ms):.2f}), {n_c} rays (sweep {n_d}); {share:.4%} of pixels over {IMAGE_TOL} "
+        f"off the sweep's image, max {float(err.max()):.3e} ({card})")
+    return launches["fully merged"], launches["unmerged"], k2_merged
+
+
 def grad_leaves(scene, camera, cfg, fields=GRAD_FIELDS):
     """``image_grad`` (the mean pixel) as (loss, flat gradient tensors, peak
     device bytes of the call)."""
@@ -1087,6 +1210,9 @@ def main() -> int:
     phase("8 the bench (python -m realtrace_tpu_torch.apps.bench)")
     bench_launches = bench_run(card)
 
+    phase("9 query modes and the chunked accel")
+    k1_merged, k1_unmerged, k2_merged = query_modes(mesh, camera, cfg, dev, card)
+
     if failures:
         log(f"FAILED: {failures}")
         return 1
@@ -1097,14 +1223,15 @@ def main() -> int:
          "replaces": "realtrace_tpu/ops/pallas/trace.py:164", "launches": launches,
          "obj_scene_launches": k1_obj, "train_launches": train_launches[0],
          "phase7_launches": p7[0], "depth10_launches": k1_10,
-         "bench_launches": bench_launches[0], "max_abs_err": max(errs),
-         **k1_row},
+         "bench_launches": bench_launches[0], "merged_launches": k1_merged,
+         "unmerged_launches": k1_unmerged, "max_abs_err": max(errs), **k1_row},
         {"name": "sweep_stream", "route": "cuda",
          "source": "realtrace_tpu_torch/csrc/sweep_stream.cu",
          "replaces": "realtrace_tpu/ops/pallas/trace.py:228", "launches": stream_launches,
          "obj_scene_launches": k2_obj, "train_launches": train_launches[1],
          "phase7_launches": p7[1], "depth10_launches": 0, "bench_launches": bench_launches[1],
-         "max_abs_err": max(errs_stream), **k2_row}]}))
+         "merged_launches": k2_merged, "unmerged_launches": 0, "max_abs_err": max(errs_stream),
+         **k2_row}]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

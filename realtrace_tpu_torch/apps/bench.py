@@ -5,6 +5,7 @@ bigcurve}.py``, timed on the CUDA card.
     python -m realtrace_tpu_torch.apps.bench
     python -m realtrace_tpu_torch.apps.bench --legs 1,2,depth10 --reps 5
     python -m realtrace_tpu_torch.apps.bench --device cpu --width 32 --height 24 --reps 1
+    python -m realtrace_tpu_torch.apps.bench --legs 1,2 --accel chunked
 
 The legs, in ``bench.py``'s order (``--legs`` takes their numbers or names).
 Every scene is ``apps/scenes.py``'s, at ``--width`` x ``--height``, one light
@@ -32,6 +33,9 @@ procedural mesh for that OBJ, as the JAX bench renders bob_tri.obj:
 
 Each leg's ``RenderConfig`` is the one the JAX bench builds for it
 (``jax_config_fields``), carried over by ``core/convert.py::config_from_dict``.
+``--accel`` (``sweep``, the default, ``chunked`` or ``bruteforce``) sets the
+accel of legs 1-2, as ``RT_BENCH_ACCEL`` does in the JAX bench; a frame of
+another accel than the sweep launches no sweep kernel.
 
 Protocol, for every timed series: 2 untimed frames (or steps) first, then
 ``--reps`` samples (default 20 on legs 1 and 2, 10 on the others), each one
@@ -113,9 +117,12 @@ class Workload:
     cfg: RenderConfig
 
 
-def leg_workloads(leg: str, depth: int) -> list[Workload]:
-    """The workloads of a leg, in the order it times them."""
+def leg_workloads(leg: str, depth: int, accel_mode: str = "sweep") -> list[Workload]:
+    """The workloads of a leg, in the order it times them; ``accel_mode`` is
+    the accel of legs 1-2 (``--accel``)."""
     cfg = config_from_dict(jax_config_fields(leg, depth))
+    if leg in ("headline", "hit-heavy"):
+        cfg = dataclasses.replace(cfg, accel=accel_mode)
     return {"hit-heavy": [Workload("mesh", 1, True, cfg)],
             "grad": [Workload("mesh", 1, False, cfg), Workload("mesh", 1, True, cfg)],
             "branching": [Workload("glass", 1, False, cfg)],
@@ -273,9 +280,13 @@ class Bench:
         s = self.series(lambda: render_with_stats(scene, camera, w.cfg), reps, check, tag)
         if self.cuda:
             k1, k2 = s["k1_per_frame"], s["k2_per_frame"]
-            _require((k1 > 0 and k2 == 0) if pack.resident else (k2 > 0 and k1 == 0),
-                     f"{tag}: K1 {k1} and K2 {k2} a frame, but the pack is "
-                     f"{'resident' if pack.resident else 'streaming'}")
+            if w.cfg.accel != "sweep":
+                _require(k1 == k2 == 0, f"{tag}: K1 {k1} and K2 {k2} a frame with accel "
+                                        f"{w.cfg.accel}")
+            else:
+                _require((k1 > 0 and k2 == 0) if pack.resident else (k2 > 0 and k1 == 0),
+                         f"{tag}: K1 {k1} and K2 {k2} a frame, but the pack is "
+                         f"{'resident' if pack.resident else 'streaming'}")
         return dict(s, rays_per_frame=int(first[1]), image=first[0],
                     checksum=float(first[0].double().sum()), triangles=scene.n_triangles,
                     chunks=pack.n_chunks, chunk_size=pack.chunk_size, resident=pack.resident,
@@ -297,7 +308,7 @@ class Bench:
         where = (f" {'close' if w.close else 'serial'} framing "
                  f"({','.join(f'{x:g}' for x in position(w))})" if framing else "")
         return (f"{self.prefix}{what} {self.size} {label} {scene.n_triangles} tris{where} "
-                f"depth-{w.cfg.max_depth} (sweep)")
+                f"depth-{w.cfg.max_depth} ({w.cfg.accel})")
 
     def emit(self, leg: str, metric: str, value: float, unit: str, stats: dict, **extra):
         """One metric's line (the headline's is held until the run ends)."""
@@ -324,10 +335,12 @@ class Bench:
     # -- legs ----------------------------------------------------------------
 
     def leg_headline(self):
-        self.forward_line("headline", leg_workloads("headline", self.args.depth)[0])
+        self.forward_line("headline",
+                          leg_workloads("headline", self.args.depth, self.args.accel)[0])
 
     def leg_hit_heavy(self):
-        self.forward_line("hit-heavy", leg_workloads("hit-heavy", self.args.depth)[0])
+        self.forward_line("hit-heavy",
+                          leg_workloads("hit-heavy", self.args.depth, self.args.accel)[0])
 
     def leg_grad(self):
         for w in leg_workloads("grad", self.args.depth):
@@ -458,6 +471,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--width", type=int, default=1920)
     p.add_argument("--height", type=int, default=1080)
     p.add_argument("--depth", type=int, default=3, help="depth of legs 1-5")
+    p.add_argument("--accel", choices=("sweep", "chunked", "bruteforce"), default="sweep",
+                   help="accel of legs 1-2 (RT_BENCH_ACCEL of the JAX bench); 'chunked' is "
+                        "approximate")
     p.add_argument("--reps", type=int, default=None,
                    help="timed samples a series (default: 20 on legs 1 and 2, 10 elsewhere)")
     p.add_argument("--obj", default=None, help="OBJ mesh in place of the procedural mesh")

@@ -46,7 +46,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-faces", type=int, default=None,
                    help="triangle cap (the serial app used 2000)")
     p.add_argument("--depth", type=int, default=3, help="max bounce depth")
-    p.add_argument("--accel", choices=["bruteforce", "sweep"], default="sweep")
+    p.add_argument("--accel", choices=["bruteforce", "chunked", "sweep"], default="sweep",
+                   help="'sweep' (CUDA kernels; exact), 'bruteforce' (exact) or 'chunked' "
+                        "(approximate)")
     p.add_argument("--no-shadows", action="store_true")
     p.add_argument("--fixed-diffuse", action="store_true",
                    help="use the surface->light diffuse direction instead of the reference quirk")
@@ -75,6 +77,7 @@ def main(argv=None) -> int:
     dev = torch.device(args.device)
     cfg = RenderConfig(max_depth=args.depth, accel=args.accel, shadows=not args.no_shadows,
                        legacy_diffuse=not args.fixed_diffuse)
+    accel.warn_if_approximate(cfg)
     serial_kw = dict(texture_path=args.texture, dtype=dtype, device=dev,
                      scale=args.scale or 15.0, max_faces=args.max_faces)
     if args.scene == "sphere_plane":
@@ -94,7 +97,7 @@ def main(argv=None) -> int:
         scene, cam = scenes.glass_mesh_scene(dtype=dtype, device=dev)
     else:
         scene, cam = scenes.duplicated_mesh_scene(args.copies, dtype=dtype, device=dev)
-    if cfg.accel == "sweep" and scene.n_triangles:
+    if cfg.accel != "bruteforce" and scene.n_triangles:
         scene = accel.with_chunks(scene, cfg)
     camera = scenes.make_camera(cam, args.width, args.height, dtype=dtype, device=dev)
     print(f"[INFO] scene: {scene.n_triangles} tris, {scene.n_spheres} spheres, "

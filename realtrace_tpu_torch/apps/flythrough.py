@@ -86,7 +86,8 @@ def main(argv=None) -> int:
     p.add_argument("--frames", type=int, default=24)
     p.add_argument("--radius", type=float, default=120.0)
     p.add_argument("--depth", type=int, default=2)
-    p.add_argument("--accel", choices=["bruteforce", "sweep"], default="sweep")
+    p.add_argument("--accel", choices=["bruteforce", "chunked", "sweep"], default="sweep",
+                   help="'chunked' is approximate")
     p.add_argument("--mesh", type=int, default=0,
                    help="shard pixel tiles over N ranks (run under torchrun with N ranks; "
                         "0 = one process)")
@@ -111,11 +112,12 @@ def main(argv=None) -> int:
         mesh = pmesh.make_mesh(args.mesh)
         rank = dist.get_rank()
     cfg = RenderConfig(max_depth=args.depth, accel=args.accel)
+    accel.warn_if_approximate(cfg)
     if args.obj:
         scene, _ = scenes.serial_obj_scene(args.obj, device=dev)
     else:
         scene, _ = scenes.mesh_scene(device=dev)
-    if cfg.accel == "sweep" and scene.n_triangles:
+    if cfg.accel != "bruteforce" and scene.n_triangles:
         scene = accel.with_chunks(scene, cfg)
     cam = InteractiveCamera(radius=args.radius, resolution=(args.width, args.height))
     if args.out_dir:

@@ -41,7 +41,8 @@ def main(argv=None) -> int:
     p.add_argument("--depth", type=int, default=2)
     p.add_argument("--steps", type=int, default=100)
     p.add_argument("--lr", type=float, default=3e-2)
-    p.add_argument("--accel", choices=["bruteforce", "sweep"], default="bruteforce")
+    p.add_argument("--accel", choices=["bruteforce", "chunked", "sweep"], default="bruteforce",
+                   help="'chunked' is approximate")
     p.add_argument("--ckpt-every", type=int, default=0,
                    help="save train state every N steps (0 = off)")
     p.add_argument("--out-dir", default=None)
@@ -71,7 +72,7 @@ def main(argv=None) -> int:
         scene, cam = scenes.mesh_scene(device=dev)
     else:
         scene, cam = scenes.sphere_plane_scene(device=dev)
-    if cfg.accel == "sweep" and scene.n_triangles:
+    if cfg.accel != "bruteforce" and scene.n_triangles:
         scene = accel.with_chunks(scene, cfg)
     camera = scenes.make_camera(cam, args.width, args.height, device=dev)
 

@@ -351,7 +351,7 @@ def _build(scene_name: str, cfg: RenderConfig, width: int, height: int, device, 
         scene, cam = S.serial_obj_scene(obj, device=device)
     else:
         scene, cam = S.mesh_scene(device=device)
-    if cfg.accel == "sweep" and scene.n_triangles:
+    if cfg.accel != "bruteforce" and scene.n_triangles:
         scene = accel.with_chunks(scene, cfg)
     pos = np.asarray(cam["position"], np.float64)
     orbit = InteractiveCamera(center=np.zeros(3), radius=float(np.linalg.norm(pos)),
@@ -371,7 +371,8 @@ def main(argv=None) -> None:
     p.add_argument("--width", type=int, default=0, help="render width (0 = fit terminal)")
     p.add_argument("--height", type=int, default=0)
     p.add_argument("--depth", type=int, default=2)
-    p.add_argument("--accel", choices=("bruteforce", "sweep"), default="sweep")
+    p.add_argument("--accel", choices=("bruteforce", "chunked", "sweep"), default="sweep",
+                   help="'chunked' is approximate")
     p.add_argument("--device", default="cuda",
                    help="cuda (the default; fails without a card) or cpu")
     p.add_argument("--script", default=None,

@@ -16,12 +16,13 @@ from realtrace_tpu_torch.core.types import (DIFF_FIELDS, MATERIAL_KEYS, Lights, 
 
 _MATERIAL_FIELDS = ("tri_materials", "sph_materials", "pln_materials", "cyl_materials")
 # JAX RenderConfig fields with no counterpart here: knobs that only steer TPU
-# layouts, precisions or static shapes (the capacity ladders among them: the
-# port compacts dynamically, so nothing overflows); none changes an image
-_DROPPED = ("shortlist", "ray_block", "matmul_precision", "occlusion_precision",
-            "compact_buckets", "deep_buckets", "branch_buckets", "compact_levels")
-# JAX RenderConfig fields whose non-default values select paths not ported
-_FIXED = {"merge_queries": True, "shadow_any_mode": True}
+# layouts, precisions or static shapes; none changes an image. The capacity
+# ladders among them exist for XLA's static shapes; the port compacts the
+# wavefront dynamically at every level, so nothing overflows, and
+# ``compact_levels`` (JAX's switch between a compacted and a full-width
+# wavefront) renders the same image and ray count either way.
+_DROPPED = ("matmul_precision", "occlusion_precision", "compact_buckets", "deep_buckets",
+            "branch_buckets", "compact_levels")
 
 
 def _dtype_of(a) -> torch.dtype:
@@ -143,12 +144,8 @@ def adam_state_from_numpy(mu: dict, nu: dict, count) -> dict:
 
 def config_from_dict(d: dict) -> RenderConfig:
     """RenderConfig from the JAX config's fields: accel ``"pallas"`` maps to
-    ``"sweep"``, fields without a counterpart are dropped, and values that
-    select an unported path raise ``NotImplementedError``."""
+    ``"sweep"`` and fields without a counterpart are dropped."""
     d = dict(d)
-    for k, want in _FIXED.items():
-        if d.pop(k, want) != want:
-            raise NotImplementedError(f"{k}={not want} is not ported")
     for k in _DROPPED:
         d.pop(k, None)
     if d.get("accel") == "pallas":

@@ -271,7 +271,7 @@ def map_tensors(fn, x):
     return fn(x)
 
 
-ACCELS = ("bruteforce", "sweep")
+ACCELS = ("bruteforce", "chunked", "sweep")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -290,15 +290,27 @@ class RenderConfig:
     ray_offset: float = 1e-4               # secondary-ray origin offset, Serial/world.cpp:97-103
     shadow_origin_bias: float = 0.01       # shadow-ray origin lerp factor, Serial/world.cpp:44
     beer_sigma: tuple = (0.27, 0.45, 0.55)  # exit-attenuation constants, Serial/world.cpp:85
-    # "bruteforce" (dense reference semantics) or "sweep" (chunk sweep through
-    # the hand-written CUDA kernel; exact)
+    # "bruteforce" (dense reference semantics), "sweep" (chunk sweep through
+    # the hand-written CUDA kernels; exact) or "chunked" (APPROXIMATE: each
+    # block of ``ray_block`` rays tests only the ``shortlist`` chunks most of
+    # its rays' boxes enter, so a hit in a chunk off the shortlist is dropped)
     accel: str = "bruteforce"
     chunk_size: int = 32                   # triangles per sweep chunk
+    shortlist: int = 96                    # chunks tested per ray block ("chunked")
+    ray_block: int = 2048                  # rays per block ("chunked")
     # query widths (rays, after padding to whole tiles) at or below which
     # the exact per-ray chunk mask replaces the per-tile interval mask
     exact_mask_rays: int = 1 << 19
     # force the exact mask for every secondary (shadow + child) query
     exact_mask_secondary: bool = False
+    # False: per level the closest query of the level's rays, then one
+    # any-mode query per light (scenes without dielectrics only)
+    merge_queries: bool = True
+    # False: the fully merged query, one closest query a level over every
+    # light's shadow segment and the next level's child rays (occluded where
+    # a shadow ray hits anything); True: the shadow segments in one any-mode
+    # query beside the children's closest query
+    shadow_any_mode: bool = True
     # rematerialised backward: each level's differentiable shading runs
     # under ``torch.utils.checkpoint`` and is recomputed in the backward,
     # which keeps only the level's inputs and its query results (never re-runs

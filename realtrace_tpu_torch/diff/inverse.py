@@ -47,10 +47,10 @@ def render_loss(params: dict, scene: Scene, camera: Camera, cfg: RenderConfig, t
     """Mean squared error of the *unclamped* linear render against
     ``target`` (the clamp is a display transform, Serial/renderengine.cpp:15-17,
     and would kill the gradients of saturated pixels). ``resort`` rebuilds
-    the sweep's chunk ordering from the current vertices first, so a train
-    loop that moves vertices keeps its chunks tight."""
+    the chunk ordering from the current vertices first (any accel but brute
+    force), so a train loop that moves vertices keeps its chunks tight."""
     s = apply_params(scene, params)
-    if resort and cfg.accel == "sweep" and s.n_triangles:
+    if resort and cfg.accel != "bruteforce" and s.n_triangles:
         s = accel.resort_chunks(s, cfg)
     buf = render_buffer(s, camera, cfg)
     return torch.mean((buf - target.reshape(-1, 3)) ** 2)
@@ -95,13 +95,13 @@ def make_train_step(scene: Scene, camera: Camera, cfg: RenderConfig, target: Ten
     (H, W, 3) goal buffer in linear colour, bottom-up as ``render_buffer``.
 
     ``resort_chunks`` (default: on exactly when ``tri_vertices`` is trained
-    with ``accel="sweep"``) rebuilds the chunk ordering every step, as the JAX
-    package does.
+    with an accel other than brute force) rebuilds the chunk ordering every
+    step, as the JAX package does.
     """
     params, leaves, optimizer = trainable(scene, fields, optimizer, lr)
     tgt = target.reshape(-1, 3)
     if resort_chunks is None:
-        resort_chunks = "tri_vertices" in fields and cfg.accel == "sweep"
+        resort_chunks = "tri_vertices" in fields and cfg.accel != "bruteforce"
 
     def step() -> Tensor:
         optimizer.zero_grad(set_to_none=True)

@@ -17,7 +17,7 @@ from torch import Tensor
 
 from realtrace_tpu_torch.core import vec
 from realtrace_tpu_torch.core.types import BIG, MATERIAL_KEYS, RenderConfig, Scene
-from realtrace_tpu_torch.ops import sweep
+from realtrace_tpu_torch.ops import accel, sweep
 
 # family codes
 FAM_NONE, FAM_TRI, FAM_SPH, FAM_PLN, FAM_CYL = 0, 1, 2, 3, 4
@@ -132,7 +132,8 @@ def cylinder_test(ro: Tensor, rd: Tensor, center: Tensor, up: Tensor, radius: Te
 def _tri_closest(scene: Scene, ro: Tensor, rd: Tensor, cfg: RenderConfig, pack=None,
                  exact_mask=None):
     """Nearest triangle per ray: (t, idx), BIG / -1 on a miss. In sweep mode
-    idx is SORTED-space (``hit_attributes`` maps it back)."""
+    idx is SORTED-space (``hit_attributes`` maps it back); the other accels
+    return original indices."""
     r = ro.shape[0]
     if scene.n_triangles == 0:
         return (torch.full((r,), BIG, dtype=ro.dtype, device=ro.device),
@@ -140,6 +141,8 @@ def _tri_closest(scene: Scene, ro: Tensor, rd: Tensor, cfg: RenderConfig, pack=N
     if cfg.accel == "sweep":
         return sweep.closest_triangle(scene, ro, rd, cfg, pack=pack, raw_idx=True,
                                       exact_mask=exact_mask)
+    if cfg.accel == "chunked":
+        return accel.closest_triangle(scene, ro, rd, cfg)
     t, _, _ = triangle_test(ro, rd, scene.tri_vertices, cfg.det_epsilon, cfg.smallest_dist)
     tbest, idx = torch.min(t, dim=1)
     return tbest, torch.where(tbest < BIG, idx, torch.full_like(idx, -1))
@@ -359,6 +362,8 @@ def any_hit(scene: Scene, ro: Tensor, rd: Tensor, cfg: RenderConfig, pack=None,
     if scene.n_triangles:
         if cfg.accel == "sweep":
             occ |= sweep.any_triangle(scene, ro, rd, cfg, pack=pack, exact_mask=exact_mask)
+        elif cfg.accel == "chunked":
+            occ |= accel.any_triangle(scene, ro, rd, cfg)
         else:
             t, _, _ = triangle_test(ro, rd, scene.tri_vertices, cfg.det_epsilon,
                                     cfg.smallest_dist)

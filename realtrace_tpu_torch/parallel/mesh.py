@@ -124,8 +124,8 @@ def make_sharded_train_step(scene: Scene, camera: Camera, cfg: RenderConfig,
     gradients (flattened into one buffer) and the loss, then steps the
     optimizer (``make_train_step``'s ``optimizer`` and ``lr``) on every rank
     alike; ``step()`` returns the reduced loss. ``target_image`` is the top-down (H, W, 3)
-    goal. ``resort_chunks`` (default: on when ``tri_vertices`` trains with
-    the sweep) rebuilds the chunk ordering every step; the rebuild is
+    goal. ``resort_chunks`` (default: on when ``tri_vertices`` trains with an
+    accel other than brute force) rebuilds the chunk ordering every step; the rebuild is
     deterministic on identical parameters, so the ranks stay bit-identical
     without another collective. ``step.loss_and_grad()`` returns the reduced
     (loss, gradients) at the current parameters without stepping.
@@ -139,7 +139,7 @@ def make_sharded_train_step(scene: Scene, camera: Camera, cfg: RenderConfig,
     tgt = target[mesh.iy * th:(mesh.iy + 1) * th, mesh.ix * tw:(mesh.ix + 1) * tw]
     tgt = tgt.to(device=scene.tri_vertices.device, dtype=scene.dtype)
     if resort_chunks is None:
-        resort_chunks = "tri_vertices" in fields and cfg.accel == "sweep"
+        resort_chunks = "tri_vertices" in fields and cfg.accel != "bruteforce"
     params, leaves, optimizer = trainable(scene, fields, optimizer, lr)
 
     def local_loss() -> Tensor:

@@ -54,7 +54,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--width", type=int, default=1920)
     p.add_argument("--height", type=int, default=1080)
     p.add_argument("--depth", type=int, default=3)
-    p.add_argument("--accel", choices=["bruteforce", "sweep"], default="sweep")
+    p.add_argument("--accel", choices=["bruteforce", "chunked", "sweep"], default="sweep")
     p.add_argument("--f64", action="store_true")
     p.add_argument("--fields", default="tri_vertices,tri_colors,lights",
                    help="comma-separated DIFF_FIELDS the train step optimises")
@@ -82,7 +82,7 @@ def _problem(args, device):
     else:
         scene, cam = scenes.mesh_scene(args.seed, dtype=dtype, device=device)
     cfg = RenderConfig(max_depth=args.depth, accel=args.accel)
-    if cfg.accel == "sweep" and scene.n_triangles:
+    if cfg.accel != "bruteforce" and scene.n_triangles:
         scene = accel.with_chunks(scene, cfg)
     camera = scenes.make_camera(cam, args.width, args.height, dtype=dtype, device=device)
     target = torch.zeros((args.height, args.width, 3), dtype=dtype, device=device)

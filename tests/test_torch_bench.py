@@ -235,6 +235,18 @@ def test_without_a_card_it_raises(monkeypatch):
     assert p.returncode != 0 and p.stdout == "" and "no CUDA card" in p.stderr
 
 
+def test_accel_option_sets_legs_1_and_2(quick_renders):
+    """``--accel`` (RT_BENCH_ACCEL of the JAX bench) sets the accel of the
+    headline and the close framing only; their lines name it."""
+    for leg in bench.LEGS:
+        want = "chunked" if leg in ("headline", "hit-heavy") else "sweep"
+        assert all(w.cfg.accel == want
+                   for w in bench.leg_workloads(leg, depth=3, accel_mode="chunked"))
+    rc, recs = run_bench("--reps", "1", "--legs", "1,2", "--accel", "chunked")
+    assert rc == 0 and len(recs) == 2
+    assert all(r["metric"].endswith("depth-3 (chunked)") for r in recs)
+
+
 def test_parse_legs():
     assert bench.parse_legs("9,1,hit-heavy") == ["headline", "hit-heavy", "depth10"]
     assert bench.parse_legs(",".join(bench.LEGS)) == list(bench.LEGS)

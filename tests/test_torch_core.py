@@ -167,10 +167,11 @@ def test_has_dielectrics_reads_the_tensors():
 def test_config_from_dict_maps_jax_fields():
     cfg = config_from_dict(dataclasses.asdict(JConfig(accel="pallas", max_depth=4)))
     assert cfg == RenderConfig(accel="sweep", max_depth=4)
-    with pytest.raises(NotImplementedError):
-        config_from_dict(dataclasses.asdict(JConfig(merge_queries=False)))
+    knobs = dict(accel="chunked", merge_queries=False, shadow_any_mode=False, shortlist=12,
+                 ray_block=256)
+    assert config_from_dict(dataclasses.asdict(JConfig(**knobs))) == RenderConfig(**knobs)
     with pytest.raises(ValueError):
-        RenderConfig(accel="chunked")
+        RenderConfig(accel="bogus")
 
 
 @pytest.mark.parametrize("w,h", [(64, 48), (33, 17)])

@@ -368,3 +368,37 @@ def test_samples_on_card_equal_cpu(cuda):
     for sys_ in (0, 1, 2):
         assert torch.equal(samples.stability(64, 48, 0.1, sys_, device=cuda).cpu(),
                            samples.stability(64, 48, 0.1, sys_, device="cpu"))
+
+
+@pytest.mark.parametrize("mode,knobs,launches", [
+    ("merged", {"shadow_any_mode": False}, 5),
+    ("unmerged", {"merge_queries": False}, 8),
+], ids=["fully-merged", "unmerged"])
+def test_query_mode_render_on_card_equals_default(mesh_on_card, mode, knobs, launches):
+    """The fully merged mode (one closest query a level) and the unmerged mode
+    (one shadow query per light) launch K1 5 and 8 times a depth-3 frame
+    (the default 8) and render the default mode's image and rays."""
+    scene, camera = mesh_on_card
+    out = []
+    for cfg in (CFG, dataclasses.replace(CFG, **knobs)):
+        sweep.sweep.launches = sweep.sweep.stream_launches = 0
+        img, n = render_with_stats(scene, camera, cfg)
+        out.append((img, n, sweep.sweep.launches, sweep.sweep.stream_launches))
+    (a, na, ka, sa), (b, nb, kb, sb) = out
+    assert (ka, sa, kb, sb) == (8, 0, launches, 0)
+    assert na == nb
+    err = (a - b).abs().amax(-1)
+    assert float((err > 1e-4).float().mean()) <= 0.002, float(err.max())
+
+
+def test_chunked_hits_on_card_equal_cpu(cuda):
+    """The chunked shortlist query is plain PyTorch, written one rounding a
+    step: on the card it finds the CPU's triangles at the CPU's distances."""
+    cfg = RenderConfig(accel="chunked", ray_block=2048, shortlist=24)
+    scene, cam = scenes.mesh_scene(detail=0.36, device="cpu")
+    scene = accel.with_chunks(scene, cfg)
+    ro, rd, _ = _tiled_rays(scenes.make_camera(cam, 96, 64, device="cpu"))
+    t_cpu, i_cpu = accel.closest_triangle(scene, ro, rd, cfg)
+    t_card, i_card = accel.closest_triangle(scene.to(cuda), ro.to(cuda), rd.to(cuda), cfg)
+    assert int((i_cpu >= 0).sum()) > 0
+    assert torch.equal(i_card.cpu(), i_cpu) and torch.equal(t_card.cpu(), t_cpu)
