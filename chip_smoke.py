@@ -92,9 +92,11 @@ and the script exits 1 without printing a result:
    the unmerged mode (``merge_queries=False``: 8 K1, one shadow query per
    light), each against its twin render (as phase 4) and against the
    default mode's image (error > 1e-4 on at most 0.2% of pixels, pixels not
-   bit-equal counted, equal rays), with a host-timed median of 10
-   synchronised frames; duplicated_mesh_scene(8) in the fully merged mode
-   (K2 only, 5 a frame) against its twin and the default image; the chunked
+   bit-equal counted, equal rays); duplicated_mesh_scene(8) in the fully
+   merged mode (K2 only, 5 a frame) against its twin and the default image;
+   the three mesh modes and the x8 default and fully merged frames timed in
+   turns, 10 host-timed synchronised frames each (median, quartiles), and
+   one profiled frame each (busy ms, idle share, the sweep kernels' ms); the chunked
    accel (the JAX bench's headline config: ray blocks of 8192, shortlist 96)
    on mesh_scene's 256x192 primary, reflection and shadow rays, its indices
    on the card equal to those on the CPU and its distances bit-equal, and
@@ -704,6 +706,47 @@ def host_median(fn, reps: int):
     return statistics.median(ms), ms
 
 
+def in_turns(runs: dict, reps: int) -> dict:
+    """Host-timed synchronised calls of several paths in turns, one call of
+    each a round, ``reps`` rounds after an untimed one, so that a drift of
+    the host falls on every path alike. Each path also runs once under
+    ``torch.profiler``: the card's busy ms and idle share
+    (``utils/profiling.py::device_busy``) and the device ms of the sweep
+    kernels. Returns name -> dict of those and the median, quartiles and
+    samples (ms)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from realtrace_tpu_torch.utils import profiling
+
+    for fn in runs.values():
+        fn()
+    torch.cuda.synchronize()
+    ms: dict = {k: [] for k in runs}
+    for _ in range(reps):
+        for k, fn in runs.items():
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ms[k].append((time.perf_counter() - t0) * 1e3)
+    out = {}
+    for k, fn in runs.items():
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     acc_events=True) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            total = (time.perf_counter() - t0) * 1e3
+        busy = profiling.device_busy(prof, total)
+        sweep_us = sum(e.device_time for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA and "sweep" in e.name)
+        q1, med, q3 = np.percentile(ms[k], [25, 50, 75])
+        out[k] = dict(median=float(med), q1=float(q1), q3=float(q3), samples=ms[k],
+                      busy_ms=busy["busy_ms"], idle=busy["idle_share"], sweep_ms=sweep_us / 1e3)
+    return out
+
+
 def against(name, img, n, ref, n_ref, what):
     """Hold an image and its rays to another render's (``what`` names it):
     error > IMAGE_TOL on at most IMAGE_FRAC of pixels, equal rays; the
@@ -726,33 +769,38 @@ def query_modes(mesh, camera, cfg, dev, card):
     from realtrace_tpu_torch.ops import accel, sweep
     from realtrace_tpu_torch.render.pipeline import _tiled_rays, render_with_stats
 
-    frames, launches = {}, {}
+    frames, launches, cfgs = {}, {}, {}
     for mode, knobs in MODES.items():
-        cfg_m = dataclasses.replace(cfg, **knobs)
-        img, n, k1, k2 = main_path(f"mesh_scene, {mode} mode", mesh, camera, cfg_m)
+        cfgs[mode] = dataclasses.replace(cfg, **knobs)
+        img, n, k1, k2 = main_path(f"mesh_scene, {mode} mode", mesh, camera, cfgs[mode])
         check(k1 == MODE_K_A_FRAME[mode] and k2 == 0,
               f"mesh_scene, {mode} mode: {k1} K1 a frame (want {MODE_K_A_FRAME[mode]}), {k2} K2")
-        med, ms = host_median(lambda: render_with_stats(mesh, camera, cfg_m), reps=10)
-        log(f"  mesh_scene {W}x{H} depth {cfg.max_depth}, {mode} mode: median {med:.2f} ms of "
-            f"10 host-timed frames (min {min(ms):.2f}, max {max(ms):.2f}), {k1} K1 a frame, "
-            f"{n} rays ({card})")
         if mode != "default":
             against(f"mesh_scene, {mode} mode", img, n, *frames["default"], "the default mode")
         frames[mode], launches[mode] = (img, n), k1
 
     x8, _ = scenes.duplicated_mesh_scene(8, device=dev)
     x8 = accel.with_chunks(x8, cfg)
-    cfg_f = dataclasses.replace(cfg, **MODES["fully merged"])
+    cfg_f = cfgs["fully merged"]
     img, n, k1, k2_merged = main_path("duplicated_mesh_scene(8), fully merged mode", x8, camera,
                                       cfg_f)
     check(k1 == 0 and k2_merged == MODE_K_A_FRAME["fully merged"],
           f"x8, fully merged mode: K2 only, {k2_merged} a frame")
-    med, ms = host_median(lambda: render_with_stats(x8, camera, cfg_f), reps=10)
-    log(f"  duplicated_mesh_scene(8), fully merged mode: median {med:.2f} ms of 10 host-timed "
-        f"frames (min {min(ms):.2f}, max {max(ms):.2f}), {k2_merged} K2 a frame ({card})")
     against("duplicated_mesh_scene(8), fully merged mode", img, n,
             *render_with_stats(x8, camera, cfg), "the default mode")
-    del x8, img
+    del img
+
+    runs = {f"mesh_scene, {mode} mode": (lambda c=c: render_with_stats(mesh, camera, c))
+            for mode, c in cfgs.items()}
+    runs.update({f"duplicated_mesh_scene(8), {mode} mode":
+                 (lambda c=cfgs[mode]: render_with_stats(x8, camera, c))
+                 for mode in ("default", "fully merged")})
+    for name, r in in_turns(runs, reps=10).items():
+        log(f"  {name} {W}x{H} depth {cfg.max_depth}: median {r['median']:.2f} ms (q1 "
+            f"{r['q1']:.2f}, q3 {r['q3']:.2f}) of {len(r['samples'])} host-timed frames in turns "
+            f"with the other modes; profiled frame: busy {r['busy_ms']:.2f} ms, idle {r['idle']:.3f}, sweep "
+            f"kernels {r['sweep_ms']:.3f} ms ({card})")
+    del x8
 
     # the chunked accel: the JAX bench's headline config (bench.py:386-390)
     cfg_c = dataclasses.replace(cfg, accel="chunked", ray_block=8192)
