@@ -10,14 +10,14 @@ one JSON object per line:
 * ``frames`` (``steps`` with ``--backward``): host-clock ms of a few
   synchronised frames or train steps after a warm-up, traced rays, launches
   of each sweep kernel, peak device memory;
-* ``layers``: one frame or step with every layer wrapped in synchronised
-  timers (the synchronisation stretches it; the shares are what it shows).
-  Nested layers are listed under their own names and also count in their
-  caller's time: the exact mask contains its interval pass and its super
-  gate, a train step's ``level shading`` its hit attributes, phong and
-  child geometry. Layers that run inside the backward are listed as
-  ``backward: <layer>`` (with remat: the recomputed shading);
-* ``profile``: one frame or step under ``torch.profiler``: kernel launches,
+* ``layers``: the program's own spans (``rt.p.*``, ``utils/profiling.py``)
+  in one frame or step under ``torch.profiler``: for each span name its
+  calls, host ms (the profiler stretches them) and the device ms of the work
+  launched inside it, from any thread. Spans nest and count in their
+  caller's time too: ``rt.p.level.<k>`` holds a wavefront level's masks,
+  kernels, hit attributes, shading, compaction and host syncs
+  (``rt.p.sync.<site>``); ``rt.p.backward`` the recomputed shading;
+* ``profile``: the same frame or step: kernel launches,
   the time the card was busy, its idle share, the kernels that took the most
   device time and, for a step, the backward's autograd nodes by device time
   (``IndexBackward0`` is the dual of the shade-table gathers, a scatter-add;
@@ -39,8 +39,9 @@ Every line carries the card's name and power limit. It needs a card.
 from __future__ import annotations
 
 import argparse
-import contextlib
+import bisect
 import json
+import tempfile
 import time
 
 import torch
@@ -49,86 +50,50 @@ from realtrace_tpu_torch.apps import scenes
 from realtrace_tpu_torch.core.types import RenderConfig
 from realtrace_tpu_torch.diff import inverse
 from realtrace_tpu_torch.ops import accel, sweep
-from realtrace_tpu_torch.render import pipeline, shade
+from realtrace_tpu_torch.render import pipeline
 from realtrace_tpu_torch.utils import profiling
 
-# (module, function, layer name); hit_attributes and closest_query are looked
-# up by shade under its own names
-LAYERS = ((sweep, "chunk_mask", "interval mask"), (sweep, "chunk_mask_exact", "exact mask"),
-          (sweep, "super_tile_mask", "super gate"), (sweep, "sweep", "sweep kernel"),
-          (sweep, "build_pack", "pack"), (shade, "hit_attributes", "hit attributes"),
-          (shade, "light_shade", "phong"), (shade, "_children_geom", "child geometry"),
-          (shade, "_add_tiles", "tile adds"), (pipeline, "_tiled_rays", "ray generation"))
-# a train step's own layers
-STEP_LAYERS = ((accel, "resort_chunks", "re-sort"), (shade, "_shade_level", "level shading"))
 TRAIN_FIELDS = ("tri_vertices", "tri_colors", "tri_materials", "lights")   # bench.py:248
+# Chrome-trace categories: the host's launching calls, and the device's work
+LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
-@contextlib.contextmanager
-def timed_layers(times: dict, calls: dict, layers=LAYERS, where=None):
-    """Wrap every layer in a synchronised host timer for the block. A layer
-    called while ``where["phase"]`` is set is listed as ``<phase>: <layer>``."""
-    saved = []
-    for mod, fn_name, layer in layers:
-        fn = getattr(mod, fn_name)
-
-        def wrapper(*a, _fn=fn, _layer=layer, **k):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            try:    # a checkpoint's recomputation leaves its function by an exception
-                return _fn(*a, **k)
-            finally:
-                torch.cuda.synchronize()
-                phase = (where or {}).get("phase")
-                key = f"{phase}: {_layer}" if phase else _layer
-                times[key] = times.get(key, 0.0) + (time.perf_counter() - t0) * 1e3
-                calls[key] = calls.get(key, 0) + 1
-
-        for attr in ("launches", "stream_launches"):     # the sweep's counters
-            if hasattr(fn, attr):
-                setattr(wrapper, attr, getattr(fn, attr))
-        saved.append((mod, fn_name, fn, wrapper))
-        setattr(mod, fn_name, wrapper)
-    try:
-        yield
-    finally:
-        for mod, fn_name, fn, wrapper in saved:
-            for attr in ("launches", "stream_launches"):
-                if hasattr(fn, attr):
-                    setattr(fn, attr, getattr(wrapper, attr))
-            setattr(mod, fn_name, fn)
-
-
-class _Phases:
-    """Times a train step's backward and optimiser step as layers, and marks
-    the layers called inside them (``where["phase"]``)."""
-
-    def __init__(self, optimizer, times: dict, where: dict):
-        self.optimizer, self.times, self.where = optimizer, times, where
-
-    def _timed(self, name, fn):
-        def run(*a, **k):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            self.where["phase"] = name
-            try:
-                return fn(*a, **k)
-            finally:
-                torch.cuda.synchronize()
-                self.where["phase"] = None
-                self.times[name] = self.times.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
-        return run
-
-    @contextlib.contextmanager
-    def on(self):
-        backward, opt_step = torch.Tensor.backward, self.optimizer.step
-        torch.Tensor.backward = self._timed("backward", backward)
-        self.optimizer.step = self._timed("optimizer", opt_step)
-        try:
-            yield
-        finally:
-            torch.Tensor.backward = backward
-            self.optimizer.step = opt_step
+def span_table(prof) -> dict:
+    """The program's spans (``rt.p.*``) of a finished ``torch.profiler``
+    profile, from its Chrome trace: for each name its calls, host ms (the
+    sum of its ranges) and device ms (the kernels, copies and sets launched
+    inside its ranges, from any thread, each tied to its launch by the
+    profiler's correlation id)."""
+    with tempfile.TemporaryDirectory() as d:
+        prof.export_chrome_trace(f"{d}/trace.json")
+        with open(f"{d}/trace.json") as f:
+            events = json.load(f)["traceEvents"]
+    launch = {e["args"]["correlation"]: e["ts"] for e in events
+              if e.get("cat") in LAUNCH_CATS and "correlation" in e.get("args", {})}
+    launched = sorted((launch[e["args"]["correlation"]], e.get("dur", 0)) for e in events
+                      if e.get("cat") in DEVICE_CATS
+                      and e.get("args", {}).get("correlation") in launch)
+    starts = [t for t, _ in launched]
+    cum = [0.0]
+    for _, us in launched:
+        cum.append(cum[-1] + us)
+    spans = [e for e in events
+             if e.get("cat") == "user_annotation" and e["name"].startswith("rt.p.")]
+    out = {}
+    for name in sorted({e["name"] for e in spans}):
+        mine = [(e["ts"], e["ts"] + e.get("dur", 0)) for e in spans if e["name"] == name]
+        merged: list = []
+        for a, b in sorted(mine):
+            if merged and a <= merged[-1][1]:
+                merged[-1][1] = max(merged[-1][1], b)
+            else:
+                merged.append([a, b])
+        device_us = sum(cum[bisect.bisect_right(starts, b)] - cum[bisect.bisect_left(starts, a)]
+                        for a, b in merged)
+        out[name] = dict(calls=len(mine), host_ms=sum(b - a for a, b in mine) / 1e3,
+                         device_ms=device_us / 1e3)
+    return out
 
 
 def main(argv=None) -> int:
@@ -165,13 +130,9 @@ def main(argv=None) -> int:
                depth=args.depth, card=card,
                lists="interval" if sweep.INTERVAL_LISTS_ON_CUDA else "exact")
     rays = []
-    layers, where, phases = LAYERS, {}, contextlib.nullcontext
-
     if args.backward:
         target = torch.zeros((args.width * args.height, 3), device=dev)
-        step, _, optimizer = inverse.make_train_step(scene, camera, cfg, target,
-                                                     fields=TRAIN_FIELDS)
-        layers = LAYERS + STEP_LAYERS
+        step, _, _ = inverse.make_train_step(scene, camera, cfg, target, fields=TRAIN_FIELDS)
         tag.update(kind_of="train step", fields=list(TRAIN_FIELDS), remat=cfg.remat)
 
         def run():
@@ -197,16 +158,11 @@ def main(argv=None) -> int:
                           stream_launches=sweep.sweep.stream_launches // args.frames,
                           peak_device_bytes=torch.cuda.max_memory_allocated())), flush=True)
 
-    times, calls = {}, {}
-    if args.backward:
-        phases = _Phases(optimizer, times, where).on
-    with timed_layers(times, calls, layers, where), phases():
-        total = run()
-    print(json.dumps(dict(tag, kind="layers", total_ms=total, ms=times, calls=calls)), flush=True)
-
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         total = run()
+    print(json.dumps(dict(tag, kind="layers", total_ms=total, spans=span_table(prof))),
+          flush=True)
     out = dict(tag, kind="profile", total_ms=total, **profiling.device_busy(prof, total))
     if args.backward:
         prefix = "autograd::engine::evaluate_function: "

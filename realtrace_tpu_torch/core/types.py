@@ -14,6 +14,8 @@ import numpy as np
 import torch
 from torch import Tensor
 
+from realtrace_tpu_torch.utils.profiling import span
+
 # Epsilons, faithful to the reference.
 SMALLEST_DIST = 1e-4  # min-t cutoff; Serial/ray.h:10
 DET_EPSILON = 1e-7    # degenerate-triangle determinant cutoff; Serial/triangle.h:12
@@ -154,8 +156,10 @@ class Scene:
         themselves (no cached flag that could go stale)."""
         for m in (self.tri_materials, self.sph_materials, self.pln_materials,
                   self.cyl_materials):
-            if m.kr.numel() and bool(torch.any((m.kr > 0) & (m.kt > 0))):
-                return True
+            if m.kr.numel():
+                with span("rt.p.sync.dielectrics"):
+                    if bool(torch.any((m.kr > 0) & (m.kt > 0))):
+                        return True
         return False
 
     def to(self, device) -> "Scene":

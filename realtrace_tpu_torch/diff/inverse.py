@@ -22,6 +22,7 @@ from realtrace_tpu_torch.core.types import (DIFF_FIELDS, RenderConfig, Scene, ma
 from realtrace_tpu_torch.ops import accel
 from realtrace_tpu_torch.render.camera import Camera
 from realtrace_tpu_torch.render.pipeline import render_buffer
+from realtrace_tpu_torch.utils.profiling import span
 
 __all__ = ["DIFF_FIELDS", "OptimizerFactory", "apply_params", "image_grad", "make_train_step",
            "render_loss", "scene_params"]
@@ -106,9 +107,11 @@ def make_train_step(scene: Scene, camera: Camera, cfg: RenderConfig, target: Ten
     def step() -> Tensor:
         optimizer.zero_grad(set_to_none=True)
         loss = render_loss(params, scene, camera, cfg, tgt, resort=resort_chunks)
-        loss.backward()
+        with span("rt.p.backward"):
+            loss.backward()
         _fill_zero_grads(leaves)
-        optimizer.step()
+        with span("rt.p.adam"):
+            optimizer.step()
         return loss.detach()
 
     return step, params, optimizer

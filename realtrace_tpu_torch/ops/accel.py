@@ -27,6 +27,7 @@ import torch
 from torch import Tensor
 
 from realtrace_tpu_torch.core.types import BIG, RenderConfig, Scene, default_device
+from realtrace_tpu_torch.utils.profiling import span, spanned
 
 # Chunk-size policy carried over from the JAX package: past TARGET_CHUNKS
 # chunks the size doubles (up to MAX_CHUNK_SIZE), and MAX_CHUNKS is a hard
@@ -107,7 +108,8 @@ def chunk_perm_split(tri_vertices: Tensor, chunk_size: int) -> Tensor:
         seg_np = np.empty((npad,), np.int64)    # position -> group
         for gi, (s, k) in enumerate(groups):
             seg_np[s * chunk_size:(s + k) * chunk_size] = gi
-        seg = torch.as_tensor(seg_np, device=dev)
+        with span("rt.p.sync.resort"):
+            seg = torch.as_tensor(seg_np, device=dev)
         cent = cent_all[ids]
         idx3 = seg[:, None].expand(npad, 3)
         lo = torch.full((g, 3), float("inf"), device=dev).scatter_reduce(
@@ -228,10 +230,13 @@ def with_chunks(scene: Scene, cfg: RenderConfig) -> Scene:
     return dataclasses.replace(scene, tri_chunk_perm=perm)
 
 
-# The JAX package's name for the per-step rebuild of a train loop whose
-# vertices move (``diff.inverse.make_train_step``): the ordering, unlike the
-# per-frame chunk boxes, goes stale as the geometry moves.
-resort_chunks = with_chunks
+@spanned("rt.p.resort")
+def resort_chunks(scene: Scene, cfg: RenderConfig) -> Scene:
+    """``with_chunks`` as the per-step rebuild of a train loop whose vertices
+    move (``diff.inverse.make_train_step``; the JAX package's name): the
+    ordering, unlike the per-frame chunk boxes, goes stale as the geometry
+    moves."""
+    return with_chunks(scene, cfg)
 
 
 def chunk_volume(scene: Scene, cfg: RenderConfig) -> Tensor:

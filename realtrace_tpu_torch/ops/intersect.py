@@ -18,6 +18,7 @@ from torch import Tensor
 from realtrace_tpu_torch.core import vec
 from realtrace_tpu_torch.core.types import BIG, MATERIAL_KEYS, RenderConfig, Scene
 from realtrace_tpu_torch.ops import accel, sweep
+from realtrace_tpu_torch.utils.profiling import spanned
 
 # family codes
 FAM_NONE, FAM_TRI, FAM_SPH, FAM_PLN, FAM_CYL = 0, 1, 2, 3, 4
@@ -221,6 +222,7 @@ def _rows(x: Tensor, m: Tensor, idx: Tensor) -> Tensor:
     return out
 
 
+@spanned("rt.p.hits")
 def hit_attributes(scene: Scene, ro: Tensor, rd: Tensor, t_fwd: Tensor, fam: Tensor,
                    idx: Tensor, cfg: RenderConfig, pack=None) -> Hit:
     """Differentiable attribute recomputation for a selected hit

@@ -46,6 +46,7 @@ from torch import Tensor
 from realtrace_tpu_torch.core.types import BIG, PARK_DISTANCE, WAVEFRONT_TILE, RenderConfig, Scene
 from realtrace_tpu_torch.ops import cuda_build
 from realtrace_tpu_torch.ops.accel import effective_chunk_size, total_order_key
+from realtrace_tpu_torch.utils.profiling import span, spanned
 
 LANES = WAVEFRONT_TILE   # rays per sweep tile
 WARP_RAYS = 128          # consecutive rays of a tile that one warp owns (4 a lane)
@@ -208,7 +209,8 @@ def chunk_mask(ro: Tensor, rd: Tensor, lo: Tensor, hi: Tensor, nt: int):
     live = ro_t[..., 0] != PARK_DISTANCE
     neg = (inv_t < 0).to(torch.int8)
     oct_id = neg[..., 0] + 2 * neg[..., 1] + 4 * neg[..., 2]
-    big = torch.tensor(BIG, dtype=ro.dtype, device=ro.device)
+    with span("rt.p.sync.mask_const"):
+        big = torch.tensor(BIG, dtype=ro.dtype, device=ro.device)
     mask = entry = None
     for o in range(8):
         sel = (live & (oct_id == o))[..., None]
@@ -323,7 +325,8 @@ def chunk_mask_exact(ro: Tensor, rd: Tensor, lo: Tensor, hi: Tensor, nt: int,
     cand = ids_i[:, :k].long()
     cnt = torch.clamp(counts_i, max=k)
     inv = _inv_dir(rd)
-    inf = torch.tensor(float("inf"), dtype=ro.dtype, device=ro.device)
+    with span("rt.p.sync.mask_const"):
+        inf = torch.tensor(float("inf"), dtype=ro.dtype, device=ro.device)
     # positions < k take the per-ray verdicts below; k <= pos < count keep
     # the conservative un-refined interval tail
     mask = (pos >= k) & (pos < counts_i[:, None])
@@ -500,7 +503,14 @@ def sweep(ro: Tensor, rd: Tensor, consts: Tensor, meta: Tensor, chunk_list: Tens
     tensors run ``sweep_reference``. Anything else raises. ``lo``, ``hi`` (the
     chunk boxes: the warps' chunk gate) and ``tested`` as in
     ``sweep_reference``. Each kernel counts its launches: ``sweep.launches``
-    and ``sweep.stream_launches``."""
+    and ``sweep.stream_launches``.
+
+    The launch (on CPU tensors the twin) runs in the span
+    ``rt.p.kernel.closest`` or ``rt.p.kernel.any``; while it records, the
+    call counts its ``mode``, ``tested`` (a fresh buffer where the caller
+    gave none: both kernels write every (tile, warp) entry), ``warp_rays``
+    and ``chunk``, so that ``tested * warp_rays * chunk`` are the (ray,
+    triangle) pairs the call tested."""
     nt = counts.shape[0]
     m, c = consts.shape[0], consts.shape[1]
     r = nt * LANES
@@ -519,9 +529,12 @@ def sweep(ro: Tensor, rd: Tensor, consts: Tensor, meta: Tensor, chunk_list: Tens
         _check(name, x, dt, shape)
         if x.device != ro.device:
             raise ValueError(f"sweep: {name} is on {x.device}, ro on {ro.device}")
+    mode = "any" if any_mode else "closest"
     if ro.device.type == "cpu":
-        return sweep_reference(ro, rd, consts, meta, chunk_list, counts, entry,
-                               det_eps, t_min, any_mode, tested, lo=lo, hi=hi)
+        with span(f"rt.p.kernel.{mode}") as s:
+            return sweep_reference(ro, rd, consts, meta, chunk_list, counts, entry, det_eps,
+                                   t_min, any_mode, _counted(s, tested, nt, c, mode, ro.device),
+                                   lo=lo, hi=hi)
     if ro.device.type != "cuda":
         raise ValueError(f"sweep: no kernel for device {ro.device}")
     # both kernels read a chunk as 16-byte words: a chunk is 64*C bytes from the base
@@ -537,12 +550,14 @@ def sweep(ro: Tensor, rd: Tensor, consts: Tensor, meta: Tensor, chunk_list: Tens
     out_i = torch.empty(r, dtype=i32, device=ro.device)
     lib = cuda_build.load()
     fn = lib.rt_sweep_stream if stream else lib.rt_sweep
-    rc = fn(ro.data_ptr(), rd.data_ptr(), consts.data_ptr(), meta.data_ptr(),
-            None if lo is None else lo.data_ptr(), None if hi is None else hi.data_ptr(),
-            chunk_list.data_ptr(), counts.data_ptr(), entry.data_ptr(), out_t.data_ptr(),
-            out_i.data_ptr(), None if tested is None else tested.data_ptr(), nt, m, c,
-            float(det_eps), float(t_min), int(any_mode), ro.device.index or 0,
-            torch.cuda.current_stream(ro.device).cuda_stream)
+    with span(f"rt.p.kernel.{mode}") as s:
+        tested = _counted(s, tested, nt, c, mode, ro.device)
+        rc = fn(ro.data_ptr(), rd.data_ptr(), consts.data_ptr(), meta.data_ptr(),
+                None if lo is None else lo.data_ptr(), None if hi is None else hi.data_ptr(),
+                chunk_list.data_ptr(), counts.data_ptr(), entry.data_ptr(), out_t.data_ptr(),
+                out_i.data_ptr(), None if tested is None else tested.data_ptr(), nt, m, c,
+                float(det_eps), float(t_min), int(any_mode), ro.device.index or 0,
+                torch.cuda.current_stream(ro.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"sweep kernel launch failed: {cuda_build.error_string(rc)}")
     if nt:
@@ -557,11 +572,24 @@ sweep.launches = 0          # launches of the resident kernel
 sweep.stream_launches = 0   # launches of the streaming kernel
 
 
+def _counted(s, tested: Tensor | None, nt: int, c: int, mode: str, device):
+    """The ``tested`` buffer a launch in the span ``s`` fills: the caller's,
+    or while ``s`` records a fresh one (``torch.empty``, no kernel), which
+    ``s`` counts."""
+    if not s.on:
+        return tested
+    if tested is None:
+        tested = torch.empty((nt, WARPS), dtype=torch.int32, device=device)
+    s.count(mode=mode, tested=tested, warp_rays=WARP_RAYS, chunk=c)
+    return tested
+
+
 # ---------------------------------------------------------------------------
 # query entry points
 # ---------------------------------------------------------------------------
 
 @torch.no_grad()
+@spanned("rt.p.mask")
 def sweep_inputs(ro: Tensor, rd: Tensor, pack: AccelPack, cfg: RenderConfig,
                  exact_mask: bool | None = None):
     """The sweep's per-query inputs: rays cast to f32 (shading may run in f64)

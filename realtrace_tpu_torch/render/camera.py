@@ -16,6 +16,7 @@ from torch import Tensor
 
 from realtrace_tpu_torch.core import vec
 from realtrace_tpu_torch.core.types import default_device
+from realtrace_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,7 +36,8 @@ class Camera:
         device = default_device(device)
 
         def t(x):
-            return torch.as_tensor(x, dtype=dtype, device=device)
+            with span("rt.p.sync.camera"):
+                return torch.as_tensor(x, dtype=dtype, device=device)
         return Camera(position=t(position), target=t(target), up=t(up), fovy=t(fovy),
                       width=int(width), height=int(height))
 
@@ -79,8 +81,10 @@ class Camera:
         u, v, w = self.basis()
         aspect = self.width / self.height
         focal = self._focal()
-        xw = aspect * (torch.as_tensor(i_idx, device=dev).to(dt) - self.width / 2.0 + 0.5) / self.width
-        yw = (torch.as_tensor(j_idx, device=dev).to(dt) - self.height / 2.0 + 0.5) / self.height
+        with span("rt.p.sync.raygen"):
+            i_idx, j_idx = torch.as_tensor(i_idx, device=dev), torch.as_tensor(j_idx, device=dev)
+        xw = aspect * (i_idx.to(dt) - self.width / 2.0 + 0.5) / self.width
+        yw = (j_idx.to(dt) - self.height / 2.0 + 0.5) / self.height
         d = (-w)[None, :] * focal + u[None, :] * xw[:, None] + v[None, :] * yw[:, None]
         return vec.normalize(d)
 

@@ -14,6 +14,7 @@ from torch import Tensor
 from realtrace_tpu_torch.core.types import PARK_DISTANCE, WAVEFRONT_TILE, RenderConfig, Scene
 from realtrace_tpu_torch.render.camera import Camera, image_from_buffer
 from realtrace_tpu_torch.render.shade import trace_wavefront
+from realtrace_tpu_torch.utils.profiling import span, spanned
 
 _TH = _TW = 32   # a wavefront tile is a 32x32 pixel block
 
@@ -56,6 +57,7 @@ def _untile(buf: Tensor, tile_w: int, tile_h: int) -> Tensor:
     return img[:tile_h, :tile_w].reshape(-1, 3)
 
 
+@spanned("rt.p.raygen")
 def _tiled_rays(camera: Camera, i0: int = 0, j0: int = 0, tile_w: int | None = None,
                 tile_h: int | None = None):
     """Tile-major padded wavefront inputs (ro, rd, coeff) of the pixel tile
@@ -70,9 +72,12 @@ def _tiled_rays(camera: Camera, i0: int = 0, j0: int = 0, tile_w: int | None = N
     ro = camera.position.expand_as(rd)
     if valid.all():
         return ro, rd, None
-    v = torch.as_tensor(valid, device=rd.device)[:, None]
+    with span("rt.p.sync.raygen"):
+        v = torch.as_tensor(valid, device=rd.device)[:, None]
     ro = torch.where(v, ro, torch.full_like(ro, PARK_DISTANCE))
-    rd = torch.where(v, rd, rd.new_tensor([1.0, 0.0, 0.0]))
+    with span("rt.p.sync.raygen"):
+        park = rd.new_tensor([1.0, 0.0, 0.0])
+    rd = torch.where(v, rd, park)
     coeff = v.to(rd.dtype).expand(-1, 3)
     return ro, rd, coeff
 

@@ -34,6 +34,7 @@ from realtrace_tpu_torch.core.types import (PARK_DISTANCE, WAVEFRONT_TILE, Rende
 from realtrace_tpu_torch.ops import sweep
 from realtrace_tpu_torch.ops.intersect import (FAM_NONE, Hit, any_hit, closest_query,
                                                hit_attributes)
+from realtrace_tpu_torch.utils.profiling import span, spanned
 
 
 def phong_pow(d: Tensor, e: int) -> Tensor:
@@ -198,12 +199,15 @@ def _shadow_occlusion(scene: Scene, position: Tensor, valid: Tensor, cfg: Render
     return occ_all.reshape(nl, -1).any(dim=0)
 
 
+@spanned("rt.p.compaction")
 def _live_tiles(coeff: Tensor) -> Tensor:
     """Indices of the tiles of a wavefront that hold a lane with energy."""
-    tile = WAVEFRONT_TILE
-    return torch.nonzero(torch.any(coeff.detach() > 0.0, dim=-1).reshape(-1, tile).any(dim=1))[:, 0]
+    live = torch.any(coeff.detach() > 0.0, dim=-1).reshape(-1, WAVEFRONT_TILE).any(dim=1)
+    with span("rt.p.sync.live_tiles"):
+        return torch.nonzero(live)[:, 0]
 
 
+@spanned("rt.p.compaction")
 def _gather_tiles(x: Tensor, sel: Tensor) -> Tensor:
     """The tiles ``sel`` of a wavefront array, concatenated."""
     return x.reshape(-1, WAVEFRONT_TILE, *x.shape[1:])[sel].reshape(-1, *x.shape[1:])
@@ -239,6 +243,7 @@ def _merged_query(scene: Scene, hit: Hit, ro: Tensor, rd: Tensor, coeff: Tensor,
     return occ, keep, (None if last else (t[s:], fam[s:], idx[s:]))
 
 
+@spanned("rt.p.compaction")
 def _add_tiles(accum_t: Tensor, tiles: Tensor, x: Tensor, unique: bool) -> Tensor:
     """accum_t[tiles] += x, deterministically. A branching wavefront lists a
     pixel tile once per live descendant tile; ``index_add`` with duplicate
@@ -256,12 +261,16 @@ def _add_tiles(accum_t: Tensor, tiles: Tensor, x: Tensor, unique: bool) -> Tenso
     start = torch.cummax(torch.where(first, pos, torch.zeros_like(pos)), dim=0).values
     rank = torch.empty_like(pos)
     rank[order] = pos - start
-    for k in range(int(rank.max()) + 1):
-        sel = torch.nonzero(rank == k)[:, 0]
+    with span("rt.p.sync.add_tiles"):
+        n_rank = int(rank.max()) + 1
+    for k in range(n_rank):
+        with span("rt.p.sync.add_tiles"):
+            sel = torch.nonzero(rank == k)[:, 0]
         accum_t = accum_t.index_add(0, tiles[sel], x[sel])
     return accum_t
 
 
+@spanned("rt.p.shade")
 def _shade_level(scene: Scene, ro: Tensor, rd: Tensor, coeff: Tensor, t: Tensor, fam: Tensor,
                  idx: Tensor, occ: Tensor | None, cfg: RenderConfig, pack, branching: bool,
                  level: int, hit: Hit | None = None):
@@ -344,60 +353,72 @@ def trace_wavefront(scene: Scene, ro: Tensor, rd: Tensor, cfg: RenderConfig,
     if cfg.accel == "sweep" and scene.n_triangles:
         pack = sweep.build_pack(scene, cfg)
 
-    t, fam, idx = closest_query(scene, ro, rd, cfg, pack=pack)
-    active = torch.any(coeff > 0.0, dim=-1)
-    valid0 = (fam != FAM_NONE) & active
-    nrays = int(active.sum()) + nl * int(valid0.sum())
-    zero = torch.zeros_like(coeff)
-    accum = torch.where((active & (fam == FAM_NONE))[:, None], coeff * scene.background[None],
-                        zero)
-    accum_t = accum.reshape(nt, tile, 3)
-
-    # live tiles (the pixel tile of each) and the wavefront gathered to them
-    tiles = torch.nonzero(valid0.reshape(nt, tile).any(dim=1))[:, 0]
-    ro_s, rd_s, coeff_s = (_gather_tiles(x, tiles) for x in (ro, rd, coeff))
-    t, fam, idx = (_gather_tiles(x, tiles) for x in (t, fam, idx))
+    nrays = 0
     unique = True   # no pixel tile is listed twice until a level has branched
     for level in range(cfg.max_depth + 1):
-        last = level == cfg.max_depth
-        act = torch.any(coeff_s.detach() > 0.0, dim=-1)
-        valid = act & (fam != FAM_NONE)
-        if level:
-            nrays += int(act.sum()) + nl * int(valid.sum())
-        args = (scene, ro_s, rd_s, coeff_s, t, fam, idx)
-        hit = None
-        if not remat:
-            hit = hit_attributes(scene, ro_s, rd_s, t, fam, idx, cfg, pack=pack)
-        keep = nxt = occ = None
-        if nl:
+        # the level's span holds its shading, its shadow query and its
+        # children's query; level 0's also the primary query
+        with span(f"rt.p.level.{level}") as level_span:
+            if not level:
+                t, fam, idx = closest_query(scene, ro, rd, cfg, pack=pack)
+                active = torch.any(coeff > 0.0, dim=-1)
+                valid0 = (fam != FAM_NONE) & active
+                with span("rt.p.sync.ray_count"):
+                    rays = int(active.sum()) + nl * int(valid0.sum())
+                zero = torch.zeros_like(coeff)
+                accum = torch.where((active & (fam == FAM_NONE))[:, None],
+                                    coeff * scene.background[None], zero)
+                accum_t = accum.reshape(nt, tile, 3)
+
+                # live tiles (the pixel tile of each) and the wavefront gathered to them
+                live = valid0.reshape(nt, tile).any(dim=1)
+                with span("rt.p.compaction"), span("rt.p.sync.live_tiles"):
+                    tiles = torch.nonzero(live)[:, 0]
+                ro_s, rd_s, coeff_s = (_gather_tiles(x, tiles) for x in (ro, rd, coeff))
+                t, fam, idx = (_gather_tiles(x, tiles) for x in (t, fam, idx))
+            last = level == cfg.max_depth
+            act = torch.any(coeff_s.detach() > 0.0, dim=-1)
+            valid = act & (fam != FAM_NONE)
+            if level:
+                with span("rt.p.sync.ray_count"):
+                    rays = int(act.sum()) + nl * int(valid.sum())
+            nrays += rays
+            level_span.count(rays=rays, tiles=tiles.numel())
+            args = (scene, ro_s, rd_s, coeff_s, t, fam, idx)
+            hit = None
+            if not remat:
+                hit = hit_attributes(scene, ro_s, rd_s, t, fam, idx, cfg, pack=pack)
+            keep = nxt = occ = None
+            if nl:
+                if remat:
+                    with torch.no_grad():
+                        hit_q = hit_attributes(scene, ro_s, rd_s, t, fam, idx, cfg, pack=pack)
+                else:
+                    hit_q = hit
+                if merged:
+                    occ, keep, nxt = _merged_query(scene, hit_q, ro_s, rd_s, coeff_s, valid,
+                                                   cfg, pack, branching, last, em)
+                else:
+                    occ = _shadow_occlusion(scene, hit_q.position, valid, cfg, pack=pack,
+                                            exact_mask=em, per_light=per_light)
             if remat:
-                with torch.no_grad():
-                    hit_q = hit_attributes(scene, ro_s, rd_s, t, fam, idx, cfg, pack=pack)
+                contrib, child = checkpoint(_shade_level, *args, occ, cfg, pack, branching,
+                                            level, use_reentrant=False,
+                                            preserve_rng_state=False)
             else:
-                hit_q = hit
-            if merged:
-                occ, keep, nxt = _merged_query(scene, hit_q, ro_s, rd_s, coeff_s, valid, cfg,
-                                               pack, branching, last, em)
-            else:
-                occ = _shadow_occlusion(scene, hit_q.position, valid, cfg, pack=pack,
-                                        exact_mask=em, per_light=per_light)
-        if remat:
-            contrib, child = checkpoint(_shade_level, *args, occ, cfg, pack, branching, level,
-                                        use_reentrant=False, preserve_rng_state=False)
-        else:
-            contrib, child = _shade_level(*args, occ, cfg, pack, branching, level, hit=hit)
-        accum_t = _add_tiles(accum_t, tiles, contrib.reshape(-1, tile, 3), unique)
-        if branching:
-            tiles = torch.cat([tiles, tiles])
-            unique = False
-        if last:   # ``child`` is the children's background
-            accum_t = _add_tiles(accum_t, tiles, child.reshape(-1, tile, 3), unique)
-            break
-        if keep is None:
-            keep = _live_tiles(child[2])
-        tiles = tiles[keep]
-        ro_s, rd_s, coeff_s = (_gather_tiles(x, keep) for x in child)
-        if nxt is None:
-            nxt = closest_query(scene, ro_s, rd_s, cfg, pack=pack, exact_mask=em)
-        t, fam, idx = nxt
+                contrib, child = _shade_level(*args, occ, cfg, pack, branching, level, hit=hit)
+            accum_t = _add_tiles(accum_t, tiles, contrib.reshape(-1, tile, 3), unique)
+            if branching:
+                tiles = torch.cat([tiles, tiles])
+                unique = False
+            if last:   # ``child`` is the children's background
+                accum_t = _add_tiles(accum_t, tiles, child.reshape(-1, tile, 3), unique)
+                break
+            if keep is None:
+                keep = _live_tiles(child[2])
+            tiles = tiles[keep]
+            ro_s, rd_s, coeff_s = (_gather_tiles(x, keep) for x in child)
+            if nxt is None:
+                nxt = closest_query(scene, ro_s, rd_s, cfg, pack=pack, exact_mask=em)
+            t, fam, idx = nxt
     return accum_t.reshape(-1, 3)[:r], nrays

@@ -126,6 +126,23 @@ def test_narrow_wavefronts_equal_twin(cuda, any_mode, nt):
     assert int(tested[0, 2]) == 0 and int(tested[0].sum()) > 0      # the parked warp
 
 
+@pytest.mark.parametrize("stream", [False, True], ids=["resident", "stream"])
+@pytest.mark.parametrize("any_mode", [False, True], ids=["closest", "any"])
+def test_kernels_write_every_tested_entry(cuda, any_mode, stream):
+    """The program's counter hands each launch an unwritten ``torch.empty``
+    buffer: both kernels write every (tile, warp) entry, a parked warp's 0
+    included, equal to the twin's."""
+    pack = soup_pack(cuda)
+    ro, rd = wide_fan_rays(cuda, 30)
+    ro32, rd32, chunk_list, entry, counts = sweep.sweep_inputs(ro, rd, pack, CFG)
+    args = (ro32, rd32, pack.consts, pack.meta, chunk_list, counts, entry, 1e-7, 1e-4, any_mode)
+    tested = torch.full((30, sweep.WARPS), -1, dtype=torch.int32, device=cuda)
+    sweep.sweep(*args, tested=tested, stream=stream, lo=pack.lo, hi=pack.hi)
+    want = torch.zeros_like(tested)
+    sweep.sweep_reference(*args, tested=want, lo=pack.lo, hi=pack.hi)
+    assert torch.equal(tested, want) and int(want[0, 2]) == 0 and int(want.sum()) > 0
+
+
 def test_stream_kernel_rejects_misaligned_and_non_contiguous(cuda):
     pack = soup_pack(cuda)
     ro, rd = fan_rays(cuda, nt=2)

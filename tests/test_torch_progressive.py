@@ -1,7 +1,6 @@
 """The PyTorch port's camera tiles, orbit camera, progressive renderer and
 profiling utilities against the JAX package. CPU only; inputs from numpy."""
 import json
-import logging
 
 import jax.numpy as jnp
 import numpy as np
@@ -161,13 +160,3 @@ def test_frame_bracket_is_seen_by_the_profiler(tmp_path):
     assert "flythrough_frame_7" in {e.name for e in prof.events()}
     trace = json.loads((tmp_path / "trace.json").read_text())
     assert any(e.get("name") == "flythrough_frame_7" for e in trace["traceEvents"])
-
-
-def test_log_transfer_counts_scene_bytes(caplog):
-    _, _, scene, _ = sphere_case(8)
-    want = sum(t.numel() * t.element_size() for t in profiling._tensors(scene))
-    # float64 sphere, plane, light, ambient, background; the empty families hold none
-    assert want == 8 * (3 + 1 + 3 + 6 + 12 + 3 + 6 + 3 + 3 + 3 + 3)
-    with caplog.at_level(logging.INFO, logger="realtrace_tpu_torch"):
-        profiling.log_transfer("scene", scene)
-    assert f"[INFO] scene: {want / 1024:.2f} KB to be transferred to device" in caplog.text

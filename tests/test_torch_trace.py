@@ -1,0 +1,212 @@
+"""The port's own spans and counters (``utils/profiling.py``): off without a
+profiler, named ``rt.p.*`` under one, a span for every wavefront level whose
+rays add up to the frame's, the sweep's tested counter against the twin's,
+results bit-equal with and without the profiler, and a log that keeps
+profiling sessions apart. CPU only, small shapes."""
+import pytest
+import torch
+
+from realtrace_tpu_torch.apps import scenes
+from realtrace_tpu_torch.core.types import RenderConfig, tensor_leaves
+from realtrace_tpu_torch.diff.inverse import make_train_step
+from realtrace_tpu_torch.ops import accel, sweep
+from realtrace_tpu_torch.render.pipeline import render_with_stats
+from realtrace_tpu_torch.utils import profiling
+
+CFG = RenderConfig(max_depth=3, accel="sweep")
+W, H = 40, 32
+# names the benchmark's own spans and its readers' selections use
+BENCH_NAMES = ("rt.frame", "rt.step")
+
+
+@pytest.fixture(autouse=True)
+def few_threads():
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def mesh():
+    scene, cam = scenes.mesh_scene(detail=0.2, device="cpu")
+    return accel.with_chunks(scene, CFG), scenes.make_camera(cam, W, H, device="cpu")
+
+
+def profiler():
+    return torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU])
+
+
+class Ranges:
+    """Stands in for ``torch.profiler.record_function``: the names of every
+    range the program opens, which it still opens."""
+
+    def __init__(self, monkeypatch):
+        self.names = []
+        real = torch.profiler.record_function
+        ranges = self
+
+        class Recorded(real):
+            def __init__(self, name, *a, **k):
+                ranges.names.append(name)
+                super().__init__(name, *a, **k)
+        monkeypatch.setattr(torch.profiler, "record_function", Recorded)
+
+
+def annotations(prof) -> list:
+    return [e.name for e in prof.events() if e.name.startswith("rt.")]
+
+
+def fit_step(scene, camera):
+    target = torch.zeros((W * H, 3))
+    step, params, _ = make_train_step(scene, camera, CFG, target, lr=1e-2)
+    return step, tensor_leaves(params)
+
+
+def test_recording_follows_the_profiler():
+    assert not profiling.recording()
+    with profiler():
+        assert profiling.recording()
+        with profiling.span("rt.p.test") as s:
+            assert s.on
+    assert not profiling.recording()
+    with profiling.span("rt.p.test") as s:
+        assert not s.on
+
+
+def test_without_a_profiler_a_frame_opens_no_range_and_logs_nothing(mesh, monkeypatch):
+    ranges = Ranges(monkeypatch)
+    log = list(profiling.RECORDER.log)
+    render_with_stats(*mesh, CFG)
+    assert ranges.names == []
+    assert list(profiling.RECORDER.log) == log
+
+
+def test_a_traced_frame_has_every_level_and_its_rays_add_up(mesh):
+    with profiler() as prof:
+        _, nrays = render_with_stats(*mesh, CFG)
+    names = annotations(prof)
+    levels = [f"rt.p.level.{k}" for k in range(CFG.max_depth + 1)]
+    assert [n for n in names if n.startswith("rt.p.level.")] == levels
+    counted = [profiling.RECORDER.read(name, 1)[0] for name in levels]
+    assert sum(c["rays"] for c in counted) == nrays
+    assert counted[0]["tiles"] >= counted[-1]["tiles"] >= 0
+    for layer in ("raygen", "mask", "kernel.closest", "kernel.any", "hits", "shade",
+                  "compaction", "sync.ray_count", "sync.live_tiles", "sync.mask_const"):
+        assert f"rt.p.{layer}" in names
+
+
+@pytest.mark.parametrize("unit", ["frame", "fit step"])
+def test_every_program_span_is_named_rt_p(mesh, monkeypatch, unit):
+    scene, camera = mesh
+    step = fit_step(scene, camera)[0] if unit == "fit step" else None
+    ranges = Ranges(monkeypatch)
+    with profiler() as prof:
+        if step is None:
+            render_with_stats(scene, camera, CFG)
+        else:
+            step()
+    assert ranges.names and all(n.startswith("rt.p.") for n in ranges.names)
+    assert not [n for n in ranges.names if n in BENCH_NAMES or n.startswith("rt.sweep")]
+    assert set(ranges.names) <= set(annotations(prof))
+    if step is not None:
+        assert {"rt.p.backward", "rt.p.adam", "rt.p.resort", "rt.p.sync.resort"} <= set(
+            ranges.names)
+
+
+def test_a_frame_is_bit_equal_with_and_without_the_profiler(mesh):
+    img0, n0 = render_with_stats(*mesh, CFG)
+    with profiler():
+        img1, n1 = render_with_stats(*mesh, CFG)
+    assert n0 == n1 and torch.equal(img0, img1)
+
+
+def test_a_fit_step_is_bit_equal_with_and_without_the_profiler(mesh):
+    results = []
+    for traced in (False, True):
+        step, leaves = fit_step(*mesh)
+        if traced:
+            with profiler():
+                loss = step()
+        else:
+            loss = step()
+        results.append((loss, [p.grad.clone() for p in leaves], [p.detach().clone()
+                                                                  for p in leaves]))
+    (l0, g0, p0), (l1, g1, p1) = results
+    assert torch.equal(l0, l1)
+    assert all(torch.equal(a, b) for a, b in zip(g0, g1))
+    assert all(torch.equal(a, b) for a, b in zip(p0, p1))
+
+
+@pytest.mark.parametrize("any_mode", [False, True])
+def test_the_tested_counter_is_the_twins(mesh, any_mode):
+    scene, camera = mesh
+    pack = sweep.build_pack(scene, CFG)
+    ro = camera.position.expand(W * H, 3)
+    rd = camera.ray_directions()
+    ro32, rd32, chunk_list, entry, counts = sweep.sweep_inputs(ro, rd, pack, CFG)
+    args = (ro32, rd32, pack.consts, pack.meta, chunk_list, counts, entry,
+            float(CFG.det_epsilon), float(CFG.smallest_dist), any_mode)
+    want = torch.zeros((counts.shape[0], sweep.WARPS), dtype=torch.int32)
+    sweep.sweep_reference(*args, tested=want, lo=pack.lo, hi=pack.hi)
+    with profiler():
+        sweep.sweep(*args, lo=pack.lo, hi=pack.hi)
+    name = "rt.p.kernel.any" if any_mode else "rt.p.kernel.closest"
+    (c,) = profiling.RECORDER.read(name, 1)
+    assert c["mode"] == ("any" if any_mode else "closest")
+    assert c["tested"] * c["warp_rays"] * c["chunk"] == \
+        int(want.sum()) * sweep.WARP_RAYS * pack.chunk_size > 0
+
+
+def test_two_sessions_read_only_the_second(mesh):
+    scene, camera = mesh
+    with profiler():
+        for _ in range(2):
+            render_with_stats(scene, camera, CFG)
+    shallow = RenderConfig(max_depth=1, accel="sweep")
+    with profiler() as prof:
+        _, nrays = render_with_stats(scene, camera, shallow)
+    names = annotations(prof)
+    counted = [c for k in range(3)
+               for c in profiling.RECORDER.read(f"rt.p.level.{k}",
+                                                names.count(f"rt.p.level.{k}"))]
+    assert len(counted) == 2 and sum(c["rays"] for c in counted) == nrays
+
+
+def test_profile_frame_lists_the_program_spans(mesh):
+    from realtrace_tpu_torch.apps import profile_frame
+
+    with profiler() as prof:
+        render_with_stats(*mesh, CFG)
+    table = profile_frame.span_table(prof)
+    assert [table[f"rt.p.level.{k}"]["calls"] for k in range(CFG.max_depth + 1)] == [1] * 4
+    assert table["rt.p.kernel.closest"]["calls"] == table["rt.p.kernel.any"]["calls"] == 4
+    assert table["rt.p.level.0"]["host_ms"] > 0
+    assert all(row["host_ms"] >= 0 and row["device_ms"] == 0 for row in table.values())
+
+
+def test_profile_frame_ties_device_work_to_the_span_that_launched_it():
+    """A kernel launched inside a span from another thread counts in its device
+    ms; the profiler's device-side copy of a range is not another call."""
+    import json
+
+    from realtrace_tpu_torch.apps import profile_frame
+
+    events = [
+        {"cat": "user_annotation", "name": "rt.p.backward", "ts": 100, "dur": 50, "tid": 1},
+        {"cat": "gpu_user_annotation", "name": "rt.p.backward", "ts": 120, "dur": 40},
+        {"cat": "cuda_runtime", "name": "cudaLaunchKernel", "ts": 110, "dur": 2, "tid": 2,
+         "args": {"correlation": 7}},
+        {"cat": "kernel", "name": "k", "ts": 130, "dur": 25, "args": {"correlation": 7}},
+        {"cat": "cuda_runtime", "name": "cudaMemcpyAsync", "ts": 300, "dur": 2, "tid": 1,
+         "args": {"correlation": 8}},
+        {"cat": "gpu_memcpy", "name": "copy", "ts": 310, "dur": 9, "args": {"correlation": 8}},
+    ]
+
+    class Profile:
+        def export_chrome_trace(self, path):
+            with open(path, "w") as f:
+                json.dump({"traceEvents": events}, f)
+
+    assert profile_frame.span_table(Profile()) == {
+        "rt.p.backward": dict(calls=1, host_ms=0.05, device_ms=0.025)}
