@@ -43,7 +43,10 @@ and the script exits 1 without printing a result:
    (phase 8) does not time: x4, x8 and x16 at depth 3 and the two OBJ frames
    of phase 4; each kernel beside the
    twin on its 1080p primary query, with the least time the card could take
-   for the (ray, triangle) pairs its warps tested, and on the reflection
+   for the (ray, triangle) pairs its warps tested; the chunk-mask kernel
+   beside its twin on that query's lists (bit-equal), with the least time
+   of its bytes, and its launches on a depth-10 frame (one a sweep launch);
+   the sweep kernels on the reflection
    and shadow wavefronts; each of these queries runs under the card's list
    policy, as the main path gives it to the kernel, and holds the kernel's
    results and ``tested`` to the twin's bit for bit, so the bound rests on
@@ -324,14 +327,17 @@ def main_path(name, scene, camera, cfg):
     from realtrace_tpu_torch.ops import sweep
     from realtrace_tpu_torch.render.pipeline import render_with_stats
 
-    sweep.sweep.launches = sweep.sweep.stream_launches = 0
+    sweep.sweep.launches = sweep.sweep.stream_launches = sweep.mask_kernel.launches = 0
     t0 = time.perf_counter()
     img, nrays = render_with_stats(scene, camera, cfg)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     k1, k2 = sweep.sweep.launches, sweep.sweep.stream_launches
+    masks = sweep.mask_kernel.launches
     log(f"  {name} {camera.width}x{camera.height} depth {cfg.max_depth}: {nrays} rays, "
-        f"sweep.launches {k1}, sweep.stream_launches {k2}, first frame {first_s:.3f} s")
+        f"sweep.launches {k1}, sweep.stream_launches {k2}, mask_kernel.launches {masks}, "
+        f"first frame {first_s:.3f} s")
+    check(masks == k1 + k2, f"{name}: every query's lists come from one mask launch")
     check(tuple(img.shape) == (camera.height, camera.width, 3)
           and bool(torch.isfinite(img).all()),
           f"{name}: image is finite, ({camera.height}, {camera.width}, 3)")
@@ -410,6 +416,38 @@ def query_times(name, ro, rd, pack, cfg, stream, twin_reps, any_mode=False):
         f"bytes {byte_ms:.3f} ms for {nbytes} bytes): the kernel runs at "
         f"{bound_ms / k_ms:.3f} of the bound")
     return dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+
+def mask_times(name, ro, rd, pack, cfg, reps=20, twin_reps=3):
+    """The chunk-mask kernel on one query as the main path gives it to the
+    kernel (rays padded to whole tiles): its lists, entries and counts against
+    the twin's on the card, bit for bit; its time and the twin's (CUDA
+    events); and the least time the card could take: the rays and the boxes
+    read once, the lists, entries and counts written once, at
+    HBM_BYTES_PER_S (the arithmetic is far below the FP32 rate)."""
+    import torch
+
+    from realtrace_tpu_torch.ops import sweep
+
+    ro32, rd32, *lists = sweep.sweep_inputs(ro, rd, pack, cfg, exact_mask=False)
+    nt = ro32.shape[0] // sweep.LANES
+    args = (ro32, rd32, pack.lo, pack.hi, nt)
+    got = sweep.chunk_mask(*args)
+    want = sweep.chunk_mask_reference(*args)
+    same = (torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])
+            and torch.equal(got[1].view(torch.int32), want[1].view(torch.int32))
+            and torch.equal(lists[0], got[0]) and torch.equal(lists[2], got[2]))
+    check(same, f"{name}: mask kernel lists, entries and counts equal the twin's bit for bit")
+    k_ms = cuda_ms(lambda: sweep.chunk_mask(*args), reps=reps)
+    t_ms = cuda_ms(lambda: sweep.chunk_mask_reference(*args), reps=twin_reps)
+    nbytes = sum(x.numel() * x.element_size() for x in (ro32, rd32, pack.lo, pack.hi, *got))
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    listed = int(got[2].sum())
+    log(f"  {name} chunk masks, {nt} tiles x {pack.n_chunks} chunks: kernel {k_ms:.4f} ms, twin "
+        f"{t_ms:.3f} ms; bound {bound_ms:.4f} ms by bytes ({nbytes} bytes): the kernel runs at "
+        f"{bound_ms / k_ms:.3f} of the bound; {listed} chunks listed "
+        f"({listed / (nt * pack.n_chunks):.4f} of tiles x chunks)")
+    return dict(ms=k_ms, plain_ms=t_ms, bound_ms=bound_ms, bound_by="bytes", library_ms=None)
 
 
 def progressive_run(name, scene, camera, cfg, band, frame, card):
@@ -1203,6 +1241,12 @@ def main() -> int:
     del glass, glass_obj, x8_obj
     k1_row = query_times("mesh_scene, resident kernel, 1080p primary", ro, rd, pack, cfg, False,
                          twin_reps=2)
+    mask_row = mask_times("mesh_scene 1080p primary", ro, rd, pack, cfg)
+    sweep.sweep.launches = sweep.sweep.stream_launches = sweep.mask_kernel.launches = 0
+    render_with_stats(mesh, camera, cfg10)
+    mask_launches = sweep.mask_kernel.launches
+    check(mask_launches == sweep.sweep.launches > 0,
+          f"mesh_scene depth 10: {mask_launches} mask launches, one a sweep launch")
     k2_row = query_times("x8, streaming kernel, 1080p primary", ro, rd, pack8, cfg, True,
                          twin_reps=1)
     for label, pk, stream, refl, shad in (("mesh_scene, resident kernel,", pack, False,
@@ -1279,7 +1323,11 @@ def main() -> int:
          "obj_scene_launches": k2_obj, "train_launches": train_launches[1],
          "phase7_launches": p7[1], "depth10_launches": 0, "bench_launches": bench_launches[1],
          "merged_launches": k2_merged, "unmerged_launches": 0, "max_abs_err": max(errs_stream),
-         **k2_row}]}))
+         **k2_row},
+        {"name": "chunk_mask", "route": "cuda", "source": "realtrace_tpu_torch/csrc/chunk_mask.cu",
+         "replaces": "realtrace_tpu/ops/pallas/trace.py:_chunk_mask, _compact_front_to_back "
+                     "(XLA code, no Pallas kernel)",
+         "depth10_launches": mask_launches, "max_abs_err": 0.0, **mask_row}]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

@@ -40,6 +40,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     for fn in (lib.rt_sweep, lib.rt_sweep_stream):
         fn.argtypes = [p] * 12 + [i, i, i, f64, f64, i, i, p]
         fn.restype = i
+    # ro rd lo hi chunk_list entry counts | nt m device | stream
+    lib.rt_chunk_mask.argtypes = [p] * 7 + [i, i, i, p]
+    lib.rt_chunk_mask.restype = i
     lib.rt_error_string.argtypes = [i]
     lib.rt_error_string.restype = ctypes.c_char_p
 

@@ -23,6 +23,9 @@ past ``RESIDENT_LIMIT`` or when asked, the streaming form
 (``csrc/sweep_stream.cu``, a block stages the listed chunks in a ring of
 shared memory). Both compute the same function; on CPU tensors ``sweep``
 runs their plain PyTorch twin ``sweep_reference``, which owns the semantics.
+The card's lists come from ``chunk_mask`` the same way: one launch of
+``csrc/chunk_mask.cu`` a query on CUDA tensors, its twin
+``chunk_mask_reference`` on CPU tensors.
 
 The unit of control inside a tile is the warp: 128 consecutive rays of the
 tile. Given the chunk boxes, a warp tests a listed chunk only if one of its
@@ -92,6 +95,10 @@ INTERVAL_LISTS_ON_CUDA = True
 # bytes one (tiles, C, LANES) f32 temporary of the twin may take: sets how many
 # tiles the twin walks at once
 REFERENCE_BLOCK_BYTES = 64 << 20
+# chunks one tile's list may hold on CUDA tensors: the keys a block of the mask
+# kernel sorts in shared memory (kSortSlots of csrc/chunk_mask.cu); the chunk
+# policy keeps scenes at accel.MAX_CHUNKS = 1536 chunks and under
+MASK_SORT_CAPACITY = 2048
 
 
 def _cross_rows(ax, ay, az, bx, by, bz):
@@ -194,12 +201,13 @@ def compact_front_to_back(mask: Tensor, entry: Tensor, ids: Tensor | None = None
             mask.sum(dim=1, dtype=torch.int32))
 
 
-def chunk_mask(ro: Tensor, rd: Tensor, lo: Tensor, hi: Tensor, nt: int):
+def chunk_mask_reference(ro: Tensor, rd: Tensor, lo: Tensor, hi: Tensor, nt: int):
     """Conservative per-tile chunk visibility by OCTANT-SPLIT interval
     arithmetic: per tile and direction octant, bound the rays by
     [ro_min, ro_max] x [inv_min, inv_max] and interval-evaluate the slab test
     against every chunk AABB. Parked lanes are excluded. Never drops a chunk
-    any tile ray could hit.
+    any tile ray could hit. The plain PyTorch twin of ``csrc/chunk_mask.cu``,
+    which computes the same function bit for bit.
 
     ro, rd: (nt*LANES, 3) f32. Returns (chunk_list (nt, M) i32, entry (nt, M)
     f32, counts (nt,) i32)."""
@@ -238,7 +246,61 @@ def chunk_mask(ro: Tensor, rd: Tensor, lo: Tensor, hi: Tensor, nt: int):
         e = torch.where(m_o, e, big)
         mask = m_o if mask is None else (mask | m_o)
         entry = e if entry is None else torch.minimum(entry, e)
-    return compact_front_to_back(mask, entry)
+    # which zero the reductions above return on a tie of +0.0 and -0.0
+    # depends on their order, and the sort puts -0.0 first: + 0.0 makes every
+    # zero entry +0.0 (the kernel does the same)
+    return compact_front_to_back(mask, entry + 0.0)
+
+
+def chunk_mask(ro: Tensor, rd: Tensor, lo: Tensor, hi: Tensor, nt: int):
+    """Each tile's chunk list, as ``chunk_mask_reference`` defines it. CUDA
+    tensors launch ``csrc/chunk_mask.cu`` (``mask_kernel``: one block a
+    tile, lists of at most ``MASK_SORT_CAPACITY`` chunks); CPU tensors run
+    the twin. Anything else raises, before any launch.
+
+    The launch (on CPU tensors the twin) runs in the span ``rt.p.kernel.mask``;
+    while it records, the call counts ``tiles`` (nt) and ``listed`` (the
+    ``counts`` tensor, summed when read), so that ``listed / (tiles * M)`` is
+    the share of chunks the lists keep."""
+    m = lo.shape[0]
+    f32 = torch.float32
+    on_cpu = ro.device.type == "cpu"
+    # the twin takes any strides; the kernel reads the rows where they lie
+    _check_all("chunk_mask", ro.device, [("ro", ro, f32, (nt * LANES, 3)),
+                                         ("rd", rd, f32, (nt * LANES, 3)),
+                                         ("lo", lo, f32, (m, 3)), ("hi", hi, f32, (m, 3))],
+               contiguous=not on_cpu)
+    if not on_cpu and m > MASK_SORT_CAPACITY:
+        raise ValueError(f"chunk_mask: {m} chunks, the kernel sorts at most "
+                         f"{MASK_SORT_CAPACITY} a tile")
+    if not on_cpu and ro.device.type != "cuda":
+        raise ValueError(f"chunk_mask: no kernel for device {ro.device}")
+    with span("rt.p.kernel.mask") as s:
+        out = (chunk_mask_reference if on_cpu else mask_kernel)(ro, rd, lo, hi, nt)
+        s.count(tiles=nt, listed=out[2])
+    return out
+
+
+def mask_kernel(ro: Tensor, rd: Tensor, lo: Tensor, hi: Tensor, nt: int):
+    """``chunk_mask``'s launch of ``csrc/chunk_mask.cu`` on the inputs it
+    checked. It counts its launches, ``mask_kernel.launches``, apart from
+    ``chunk_mask``, whose name the benchmark's spans wrap."""
+    m = lo.shape[0]
+    chunk_list = torch.empty((nt, m), dtype=torch.int32, device=ro.device)
+    entry = torch.empty((nt, m), dtype=torch.float32, device=ro.device)
+    counts = torch.empty(nt, dtype=torch.int32, device=ro.device)
+    rc = cuda_build.load().rt_chunk_mask(
+        ro.data_ptr(), rd.data_ptr(), lo.data_ptr(), hi.data_ptr(), chunk_list.data_ptr(),
+        entry.data_ptr(), counts.data_ptr(), nt, m, ro.device.index or 0,
+        torch.cuda.current_stream(ro.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"chunk_mask kernel launch failed: {cuda_build.error_string(rc)}")
+    if nt:
+        mask_kernel.launches += 1
+    return chunk_list, entry, counts
+
+
+mask_kernel.launches = 0
 
 
 def super_bounds(lo: Tensor, hi: Tensor):
@@ -484,13 +546,18 @@ def _sweep_reference_tiles(ro_t, rd_t, consts, meta, chunk_list, counts, entry, 
     return best_t, best_i
 
 
-def _check(name, x, dtype, shape):
-    if x.dtype != dtype:
-        raise TypeError(f"sweep: {name} has dtype {x.dtype}, want {dtype}")
-    if tuple(x.shape) != tuple(shape):
-        raise ValueError(f"sweep: {name} has shape {tuple(x.shape)}, want {tuple(shape)}")
-    if not x.is_contiguous():
-        raise ValueError(f"sweep: {name} is not contiguous")
+def _check_all(who: str, device, checked, contiguous: bool = True) -> None:
+    """Raise unless each (name, tensor, dtype, shape) of ``checked`` has that
+    dtype and shape, lies on ``device`` and, where asked, is contiguous."""
+    for name, x, dtype, shape in checked:
+        if x.dtype != dtype:
+            raise TypeError(f"{who}: {name} has dtype {x.dtype}, want {dtype}")
+        if tuple(x.shape) != tuple(shape):
+            raise ValueError(f"{who}: {name} has shape {tuple(x.shape)}, want {tuple(shape)}")
+        if contiguous and not x.is_contiguous():
+            raise ValueError(f"{who}: {name} is not contiguous")
+        if x.device != device:
+            raise ValueError(f"{who}: {name} is on {x.device}, ro on {device}")
 
 
 def sweep(ro: Tensor, rd: Tensor, consts: Tensor, meta: Tensor, chunk_list: Tensor,
@@ -525,10 +592,7 @@ def sweep(ro: Tensor, rd: Tensor, consts: Tensor, meta: Tensor, chunk_list: Tens
         checked += [("lo", lo, f32, (m, 3)), ("hi", hi, f32, (m, 3))]
     if tested is not None:
         checked.append(("tested", tested, i32, (nt, WARPS)))
-    for name, x, dt, shape in checked:
-        _check(name, x, dt, shape)
-        if x.device != ro.device:
-            raise ValueError(f"sweep: {name} is on {x.device}, ro on {ro.device}")
+    _check_all("sweep", ro.device, checked)
     mode = "any" if any_mode else "closest"
     if ro.device.type == "cpu":
         with span(f"rt.p.kernel.{mode}") as s:

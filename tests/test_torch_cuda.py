@@ -1,7 +1,8 @@
 """The sweep's two CUDA kernels (resident and streaming) on the card: against
 their twin and against each other, and renders on the card against the same
 renders on the CPU, and gradients through the kernel (equal to the twin's,
-no launch in the backward, bit-identical twice). The kernels have no CPU
+no launch in the backward, bit-identical twice). The chunk-mask kernel
+against its twin, bit for bit, and a depth-10 frame through either. The kernels have no CPU
 mode, so every case here skips without a CUDA card; this file imports
 neither the JAX package nor flax, so it runs where only the port is
 installed:
@@ -419,3 +420,79 @@ def test_chunked_hits_on_card_equal_cpu(cuda):
     t_card, i_card = accel.closest_triangle(scene.to(cuda), ro.to(cuda), rd.to(cuda), cfg)
     assert int((i_cpu >= 0).sum()) > 0
     assert torch.equal(i_card.cpu(), i_cpu) and torch.equal(t_card.cpu(), t_cpu)
+
+
+def mask_case(device, nt, m, seed):
+    """Chunk boxes and nt tiles of rays for the mask kernel against its twin:
+    per tile a fan from one origin around the boxes, coherent enough that
+    lists keep some chunks and drop others, wide enough that a tile's lanes
+    span several octants; a few parked lanes and, from two tiles on, a wholly
+    parked tile 1; direction components of exactly 0.0 and -0.0; origins and
+    box faces at exactly +-0.0, and boxes that are the point 0; from three
+    tiles on, one lane of tile 2 with a NaN direction."""
+    rng = np.random.default_rng(seed)
+    ctr = rng.uniform(-10, 10, (m, 3))
+    half = rng.uniform(0.1, 2.0, (m, 3))
+    lo, hi = (ctr - half).astype(np.float32), (ctr + half).astype(np.float32)
+    lo[:5, 2], hi[5:10, 2], lo[10:15, 0] = 0.0, -0.0, -0.0
+    lo[20:24], hi[20:24] = -0.0, 0.0
+    o = np.repeat(rng.uniform(-20, 20, (nt, 3)), sweep.LANES, axis=0)
+    o += rng.normal(0.0, 0.5, o.shape)
+    d = -o + rng.normal(0.0, rng.choice([0.05, 0.5, 3.0], (nt, 1)).repeat(sweep.LANES, 0),
+                        o.shape)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o, d = o.astype(np.float32), d.astype(np.float32)
+    o[::7, 2], o[3::7, 2], o[1::11, 0], o[::13] = 0.0, -0.0, -0.0, 0.0
+    d[::5, 1], d[2::5, 1] = 0.0, -0.0
+    o[7:50], d[7:50] = PARK_DISTANCE, (1.0, 0.0, 0.0)
+    if nt >= 2:
+        o[sweep.LANES:2 * sweep.LANES], d[sweep.LANES:2 * sweep.LANES] = PARK_DISTANCE, 1.0
+    if nt >= 3:
+        d[2 * sweep.LANES + 5] = np.nan
+    return tuple(torch.as_tensor(x, device=device) for x in (o, d, lo, hi))
+
+
+@pytest.mark.parametrize("nt,m", [(1, 336), (2040, 336), (5, 97), (1, 1536), (2000, 1536)],
+                         ids=["nt1-m336", "nt2040-m336", "nt5-m97", "nt1-m1536", "nt2000-m1536"])
+def test_mask_kernel_equals_twin(cuda, nt, m):
+    """Lists, entries (as bits) and counts equal the twin's on the card.
+
+    Which zero torch's amin/amax/minimum return on a tie of +0.0 and -0.0
+    depends on the order of their reduction (on an H100 with torch 2.11,
+    amin of [+0.0, -0.0] is -0.0 and of [-0.0, +0.0] is +0.0), so the twin's
+    entry could be either where a box face and the octant's origins meet at
+    zero (the boxes and origins at +-0.0 here); the twin and the kernel both
+    turn a -0.0 entry into +0.0, and no other output depends on the sign of
+    a zero."""
+    ro, rd, lo, hi = mask_case(cuda, nt, m, seed=nt + m)
+    before = sweep.mask_kernel.launches
+    got = sweep.chunk_mask(ro, rd, lo, hi, nt)
+    assert sweep.mask_kernel.launches == before + 1
+    want = sweep.chunk_mask_reference(ro, rd, lo, hi, nt)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])
+    assert torch.equal(got[1].view(torch.int32), want[1].view(torch.int32))
+    counts = want[2]
+    assert 0 < int(counts.max()) and int(counts.min()) < m
+    if nt >= 2:
+        assert int(counts[1]) == 0
+        assert torch.equal(got[0][1].cpu(), torch.arange(m, dtype=torch.int32))
+        assert not bool(got[1][1].any())
+
+
+def test_depth10_frame_through_the_mask_kernel_equals_the_twins(cuda, monkeypatch):
+    """A depth-10 frame of the serial framing's mesh (the benchmark's scene,
+    at reduced resolution): every query's lists come from the kernel, one
+    launch a sweep launch, and the frame is bit-identical with the lists of
+    the twin."""
+    cfg = RenderConfig(accel="sweep", max_depth=10)
+    scene, cam = scenes.mesh_scene(device=cuda)
+    scene = accel.with_chunks(scene, cfg)
+    camera = scenes.make_camera(cam, 240, 136, device=cuda)
+    masks, sweeps = sweep.mask_kernel.launches, sweep.sweep.launches
+    img, n = render_with_stats(scene, camera, cfg)
+    masks, sweeps = sweep.mask_kernel.launches - masks, sweep.sweep.launches - sweeps
+    assert masks == sweeps > 2
+    monkeypatch.setattr(sweep, "chunk_mask", sweep.chunk_mask_reference)
+    img_twin, n_twin = render_with_stats(scene, camera, cfg)
+    assert n == n_twin and torch.equal(img, img_twin)

@@ -125,6 +125,68 @@ def test_chunk_masks_equal_jax(exact, cap, monkeypatch):
     _masks_equal(got, want)
 
 
+def test_chunk_mask_on_cpu_runs_the_twin():
+    """CPU tensors, contiguous or not, run the twin and launch nothing."""
+    js, ps = with_chunks(random_jscene(n=512, spread=2.0))
+    pack = sweep.build_pack(ps, CFG)
+    ro, rd = (torch.as_tensor(x) for x in coherent_rays())
+    assert not ro.is_contiguous()
+    nt = ro.shape[0] // sweep.LANES
+    launches = sweep.mask_kernel.launches
+    got = sweep.chunk_mask(ro, rd, pack.lo, pack.hi, nt)
+    want = sweep.chunk_mask_reference(ro.contiguous(), rd.contiguous(), pack.lo, pack.hi, nt)
+    assert sweep.mask_kernel.launches == launches
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert int(want[2].max()) > 0
+
+
+def _meta(*shape, **kw):
+    """A tensor on the meta device: a shape without data, so that nothing
+    could be launched on it."""
+    return torch.empty(shape, device="meta", **kw)
+
+
+def _mask_inputs(m=40, **swap):
+    """chunk_mask's inputs for two tiles on the meta device, some replaced."""
+    x = dict(ro=_meta(2 * sweep.LANES, 3), rd=_meta(2 * sweep.LANES, 3), lo=_meta(m, 3),
+             hi=_meta(m, 3))
+    x.update(swap)
+    return x["ro"], x["rd"], x["lo"], x["hi"], 2
+
+
+MASK_REFUSALS = [
+    ("ro-f64", lambda: _mask_inputs(ro=_meta(2 * sweep.LANES, 3, dtype=torch.float64)),
+     TypeError, "ro has dtype"),
+    ("rd-short", lambda: _mask_inputs(rd=_meta(2 * sweep.LANES - 1, 3)), ValueError,
+     "rd has shape"),
+    ("hi-rows", lambda: _mask_inputs(hi=_meta(39, 3)), ValueError, "hi has shape"),
+    ("lo-strided", lambda: _mask_inputs(lo=_meta(3, 40).t()), ValueError, "lo is not contiguous"),
+    ("hi-on-cpu", lambda: _mask_inputs(hi=torch.empty(40, 3)), ValueError, "hi is on cpu"),
+    ("ro-on-cpu", lambda: _mask_inputs(ro=torch.empty(2 * sweep.LANES, 3)), ValueError,
+     "rd is on meta"),
+    ("over-capacity", lambda: _mask_inputs(m=sweep.MASK_SORT_CAPACITY + 1), ValueError,
+     "sorts at most"),
+    ("no-kernel", lambda: _mask_inputs(m=sweep.MASK_SORT_CAPACITY), ValueError,
+     "no kernel for device meta"),
+]
+
+
+@pytest.mark.parametrize("inputs,error,match", [c[1:] for c in MASK_REFUSALS],
+                         ids=[c[0] for c in MASK_REFUSALS])
+def test_chunk_mask_wrapper_refuses_before_any_launch(inputs, error, match, monkeypatch):
+    """Every input the kernel cannot take raises in the wrapper; nothing is
+    built or launched (the library would raise first)."""
+    from realtrace_tpu_torch.ops import cuda_build
+
+    def no_build():
+        raise AssertionError("the wrapper reached the kernel library")
+    monkeypatch.setattr(cuda_build, "load", no_build)
+    launches = sweep.mask_kernel.launches
+    with pytest.raises(error, match=match):
+        sweep.chunk_mask(*inputs())
+    assert sweep.mask_kernel.launches == launches
+
+
 def _brute64(ps, ro, rd):
     from realtrace_tpu_torch.ops import intersect
     t, _, _ = intersect.triangle_test(torch.as_tensor(ro, dtype=torch.float64),

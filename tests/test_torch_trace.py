@@ -91,7 +91,7 @@ def test_a_traced_frame_has_every_level_and_its_rays_add_up(mesh):
     counted = [profiling.RECORDER.read(name, 1)[0] for name in levels]
     assert sum(c["rays"] for c in counted) == nrays
     assert counted[0]["tiles"] >= counted[-1]["tiles"] >= 0
-    for layer in ("raygen", "mask", "kernel.closest", "kernel.any", "hits", "shade",
+    for layer in ("raygen", "mask", "kernel.mask", "kernel.closest", "kernel.any", "hits", "shade",
                   "compaction", "sync.ray_count", "sync.live_tiles", "sync.mask_const"):
         assert f"rt.p.{layer}" in names
 
@@ -156,6 +156,26 @@ def test_the_tested_counter_is_the_twins(mesh, any_mode):
     assert c["mode"] == ("any" if any_mode else "closest")
     assert c["tested"] * c["warp_rays"] * c["chunk"] == \
         int(want.sum()) * sweep.WARP_RAYS * pack.chunk_size > 0
+
+
+def test_the_mask_span_counts_tiles_and_listed(mesh):
+    """Each query's mask call runs in ``rt.p.kernel.mask`` inside ``rt.p.mask``
+    and, recording, counts its tiles and listed chunks; off, it counts
+    nothing."""
+    scene, camera = mesh
+    pack = sweep.build_pack(scene, CFG)
+    ro = camera.position.expand(W * H, 3)
+    rd = camera.ray_directions()
+    log = list(profiling.RECORDER.log)
+    *_, counts = sweep.sweep_inputs(ro, rd, pack, CFG, exact_mask=False)
+    assert list(profiling.RECORDER.log) == log
+    with profiler() as prof:
+        sweep.sweep_inputs(ro, rd, pack, CFG, exact_mask=False)
+    (c,) = profiling.RECORDER.read("rt.p.kernel.mask", 1)
+    assert c == dict(tiles=counts.shape[0], listed=int(counts.sum()))
+    assert 0 < c["listed"] < c["tiles"] * pack.n_chunks
+    names = annotations(prof)
+    assert names.index("rt.p.mask") < names.index("rt.p.kernel.mask")
 
 
 def test_two_sessions_read_only_the_second(mesh):
