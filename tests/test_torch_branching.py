@@ -199,19 +199,34 @@ def test_children_geom_equals_jax_on_random_dielectric_hits():
 
 
 def test_add_tiles_sums_duplicates_in_wavefront_order():
-    rng = np.random.default_rng(0)
-    tiles = torch.as_tensor([3, 0, 3, 5, 0, 3, 7])
-    x = torch.as_tensor(rng.standard_normal((7, 4, 3)), dtype=torch.float32)
-    acc = torch.as_tensor(rng.standard_normal((8, 4, 3)), dtype=torch.float32)
-    want = acc.clone()
-    for k, t in enumerate(tiles.tolist()):      # one summand after the other
-        want[t] = want[t] + x[k]
-    got = shade._add_tiles(acc, tiles, x, unique=False)
-    assert torch.equal(got, want)
-    assert torch.equal(shade._add_tiles(acc, tiles[:0], x[:0], unique=False), acc)
-    uniq = torch.as_tensor([1, 4, 2])
-    assert torch.equal(shade._add_tiles(acc, uniq, x[:3], unique=True),
-                       shade._add_tiles(acc, uniq, x[:3], unique=False))
+    """A branching level's colour reaches its pixels through ``_add_lanes``:
+    each pixel's summands are added one after the other in wavefront order,
+    then the sum to the pixel, with no loop over a pixel's repeats; a lane of
+    pixel -1 (padding) adds nothing, and a pixel listed once gets ``accum +
+    x`` exactly. A level that does not branch lists each pixel tile once
+    (``_add_tiles``)."""
+    pix = torch.as_tensor([3, 0, 3, 5, -1, 0, 3, 7, -1])
+    x = torch.as_tensor([[1e8, 1.0, 2.0], [1.0, 2.0, 3.0], [1.0, -1e8, 4.0], [5.0, 6.0, 7.0],
+                         [9.0, 9.0, 9.0], [1e8, 1.0, 1.0], [-1e8, 1e8, 1.0], [0.5, 0.25, 1.0],
+                         [9.0, 9.0, 9.0]], dtype=torch.float32)
+    acc = torch.as_tensor(np.random.default_rng(0).standard_normal((8, 3)), dtype=torch.float32)
+    seg = torch.zeros_like(acc)
+    for k, p in enumerate(pix.tolist()):        # one summand after the other
+        if p >= 0:
+            seg[p] = seg[p] + x[k]
+    got = shade._add_lanes(acc, pix, x)
+    assert torch.equal(got, acc + seg)
+    # the order shows: pixel 3 sums 1e8 + 1 - 1e8 to 0 in float32, not to 1
+    assert float(seg[3, 0]) == 0.0 and float(seg[0, 0]) == 1e8
+    once = torch.as_tensor([6, 2, -1])
+    assert torch.equal(shade._add_lanes(acc, once, x[:3])[[6, 2]], acc[[6, 2]] + x[:2])
+    assert torch.equal(shade._add_lanes(acc, pix[:0], x[:0]), acc)
+    tiles = torch.as_tensor([1, 3, 2])
+    acc_t, xt = acc.reshape(4, 2, 3), x[:6].reshape(3, 2, 3)
+    want = acc_t.clone()
+    for k, t in enumerate(tiles.tolist()):
+        want[t] = want[t] + xt[k]
+    assert torch.equal(shade._add_tiles(acc_t, tiles, xt), want)
 
 
 @pytest.mark.parametrize("mode", ["bruteforce", "sweep"])

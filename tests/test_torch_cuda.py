@@ -2,7 +2,9 @@
 their twin and against each other, and renders on the card against the same
 renders on the CPU, and gradients through the kernel (equal to the twin's,
 no launch in the backward, bit-identical twice). The chunk-mask kernel
-against its twin, bit for bit, and a depth-10 frame through either. The kernels have no CPU
+against its twin, bit for bit, and a depth-10 frame through either. A glass
+model at depth 10 through the lane-repacked wavefront: bit-identical twice,
+equal to the CPU render, and the lanes each level holds. The kernels have no CPU
 mode, so every case here skips without a CUDA card; this file imports
 neither the JAX package nor flax, so it runs where only the port is
 installed:
@@ -16,7 +18,7 @@ import pytest
 import torch
 
 from realtrace_tpu_torch.apps import scenes
-from realtrace_tpu_torch.core.types import PARK_DISTANCE, RenderConfig, SceneBuilder
+from realtrace_tpu_torch.core.types import PARK_DISTANCE, Materials, RenderConfig, SceneBuilder
 from realtrace_tpu_torch.ops import accel, sweep
 from realtrace_tpu_torch.render.pipeline import _tiled_rays, render_with_stats
 
@@ -218,6 +220,56 @@ def test_glass_render_on_card_is_bit_identical_twice(cuda):
     a, na = render_with_stats(scene, camera, CFG)
     b, nb = render_with_stats(scene, camera, CFG)
     assert na == nb and torch.equal(a, b)
+
+
+# the glass-orbit configuration's material on mesh_scene's mesh, at depth 10
+GLASS = dict(ka=0.4, kd=0.9, ks=0.4, kr=0.1, kt=0.8, eta=2.0)
+DEPTH10 = dataclasses.replace(CFG, max_depth=10)
+
+
+def glass_model(device, width=160, height=128):
+    """mesh_scene with every triangle glass, from 0.6 of the serial framing's
+    distance: every hit splits into a reflect and a refract child, down all
+    ten levels of the lane-repacked wavefront."""
+    scene, cam = scenes.mesh_scene(detail=0.36, device=device)
+    n = scene.tri_vertices.shape[0]
+    scene = dataclasses.replace(scene, tri_materials=Materials(
+        **{k: torch.full((n,), v, device=device) for k, v in GLASS.items()}))
+    cam = dict(cam, position=(36.0, 36.0, 0.0))
+    return (accel.with_chunks(scene, DEPTH10),
+            scenes.make_camera(cam, width, height, device=device))
+
+
+def test_glass_model_at_depth_10_on_card_is_bit_identical_twice(cuda):
+    scene, camera = glass_model(cuda)
+    a, na = render_with_stats(scene, camera, DEPTH10)
+    b, nb = render_with_stats(scene, camera, DEPTH10)
+    assert na == nb and torch.equal(a, b)
+    assert na > 10 * 160 * 128
+
+
+def test_glass_model_at_depth_10_on_card_equals_render_on_cpu(cuda):
+    """Within the glass tolerance of the forced-stream test above: the CPU
+    and the card round f32 shading differently, which moves a few grazing
+    children across a hit/miss edge."""
+    (a, na), (b, nb) = (render_with_stats(*glass_model(dev), DEPTH10)
+                        for dev in (torch.device("cpu"), cuda))
+    assert abs(na - nb) <= 0.002 * na
+    err = (a - b.cpu()).abs().amax(-1)
+    assert float((err > 1e-4).float().mean()) <= 0.002, float(err.max())
+
+
+def test_glass_model_levels_hold_their_live_lanes_on_card(cuda):
+    from realtrace_tpu_torch.utils import profiling
+
+    scene, camera = glass_model(cuda)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        _, nrays = render_with_stats(scene, camera, DEPTH10)
+    counted = [profiling.RECORDER.read(f"rt.p.level.{k}", 1)[0] for k in range(11)]
+    assert sum(c["rays"] for c in counted) == nrays
+    for c in counted:
+        assert c["live"] <= c["lanes"] <= -(-c["live"] // 1024) * 1024
+    assert counted[-1]["live"] > 0
 
 
 @pytest.mark.parametrize("any_mode", [False, True], ids=["closest", "any"])
