@@ -46,6 +46,10 @@ and the script exits 1 without printing a result:
    for the (ray, triangle) pairs its warps tested; the chunk-mask kernel
    beside its twin on that query's lists (bit-equal), with the least time
    of its bytes, and its launches on a depth-10 frame (one a sweep launch);
+   the level kernels (hit attributes, shading) beside the PyTorch code they
+   replace on the close framing's level 0 and on the widest level of the
+   mesh made glass, bit-equal, with the least time of their bytes, and their
+   launches on the depth-10 frame (one of each a level);
    the sweep kernels on the reflection
    and shadow wavefronts; each of these queries runs under the card's list
    policy, as the main path gives it to the kernel, and holds the kernel's
@@ -130,6 +134,8 @@ GOLDEN_TOL, GOLDEN_FRAC = 1e-4, 0.005
 GLASS_F32_FRAC = 0.02              # full_primitive_scene in f32 (see phase 4)
 W, H, DEPTH = 1920, 1080, 3
 CLOSE_POSITION = (0.0, 6.0, 14.0)  # the close (hit-heavy) framing
+# the glass-orbit configuration's material (rtbench/configs/glass_bob_1080p.json)
+GLASS_MODEL = dict(ka=0.4, kd=0.9, ks=0.4, kr=0.1, kt=0.8, eta=2.0)
 # H100 SXM data-sheet peaks: 67 TFLOP/s FP32 counts a fused multiply-add as two
 # operations, so unfused multiplies and adds run at half that; 3.35 TB/s HBM3
 FP32_INSTR_PER_S = 67e12 / 2
@@ -448,6 +454,141 @@ def mask_times(name, ro, rd, pack, cfg, reps=20, twin_reps=3):
         f"{bound_ms / k_ms:.3f} of the bound; {listed} chunks listed "
         f"({listed / (nt * pack.n_chunks):.4f} of tiles x chunks)")
     return dict(ms=k_ms, plain_ms=t_ms, bound_ms=bound_ms, bound_by="bytes", library_ms=None)
+
+
+def queued_ms(fn, reps: int) -> float:
+    """Device ms a call of ``fn``: its launches queued behind a sleeping
+    kernel, so they run back to back whatever the host's time to launch them
+    (CUDA events around ``reps`` calls)."""
+    import torch
+
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+@contextlib.contextmanager
+def level_twins():
+    """The PyTorch code in place of the level kernels (``level_kernels.takes``
+    turned off)."""
+    from realtrace_tpu_torch.ops import level_kernels
+
+    takes = level_kernels.takes
+    level_kernels.takes = lambda *a, **k: False
+    try:
+        yield
+    finally:
+        level_kernels.takes = takes
+
+
+def level_inputs(scene, camera, cfg, widest: bool):
+    """One level's ``_shade_level`` arguments as a frame's wavefront gives
+    them: level 0, or (``widest``) the level that holds the most lanes."""
+    from realtrace_tpu_torch.render import shade
+    from realtrace_tpu_torch.render.pipeline import render_with_stats
+
+    seen = []
+    real = shade._shade_level
+
+    def spy(*args, **kw):
+        seen.append((args, kw))
+        return real(*args, **kw)
+
+    shade._shade_level = spy
+    try:
+        render_with_stats(scene, camera, cfg)
+    finally:
+        shade._shade_level = real
+    return max(seen, key=lambda s: s[0][1].shape[0]) if widest else seen[0]
+
+
+def level_times(name, scene, camera, cfg, widest, reps=20, twin_reps=5):
+    """The level kernels on one level of a frame: the hits kernel against
+    ``hit_attributes``' PyTorch code and the shading kernel against
+    ``_shade_level``'s, on the same inputs, bit for bit; each one's device
+    time and its twin's (``queued_ms``), the host ms a call of either path
+    (synchronised at the end of ``reps`` calls), and the least time the card
+    could take: each input byte read once (the triangle tables whole) and
+    each output byte written once, at HBM_BYTES_PER_S (the arithmetic, about
+    100 FP32 operations a lane, is far below the FP32 rate). Returns the two
+    kernels' rows."""
+    import torch
+
+    from realtrace_tpu_torch.core.types import MATERIAL_KEYS
+    from realtrace_tpu_torch.ops.intersect import hit_attributes
+    from realtrace_tpu_torch.render import shade
+
+    def nbytes(*xs):
+        return sum(x.numel() * x.element_size() for x in xs)
+
+    def same(a, b):
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        return torch.equal(a, b)
+
+    def host_ms(fn, reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / reps
+
+    (sc, ro, rd, coeff, t, fam, idx, occ, lcfg, pack, branching, level), _ = level_inputs(
+        scene, camera, cfg, widest)
+    n = ro.shape[0]
+    fields = ("valid", "t", "index", "position", "normal", "color") + MATERIAL_KEYS
+
+    def hits():
+        return hit_attributes(sc, ro, rd, t, fam, idx, lcfg, pack=pack)
+
+    hit = hits()
+
+    def shades():
+        return shade._shade_level(sc, ro, rd, coeff, t, fam, idx, occ, lcfg, pack, branching,
+                                  level, hit=hit)
+
+    got = shades()
+    with level_twins():
+        hit_t = hits()
+        got_t = shades()
+    flat = [got[0], *(got[1] if isinstance(got[1], tuple) else (got[1],))]
+    flat_t = [got_t[0], *(got_t[1] if isinstance(got_t[1], tuple) else (got_t[1],))]
+    check(all(same(getattr(hit, f), getattr(hit_t, f)) for f in fields),
+          f"{name}: the hits kernel equals hit_attributes bit for bit")
+    check(len(flat) == len(flat_t) and all(same(a, b) for a, b in zip(flat, flat_t)),
+          f"{name}: the shading kernel's colour and children equal _shade_level's bit for bit")
+    mats = [getattr(sc.tri_materials, k) for k in MATERIAL_KEYS]
+    hit_in = nbytes(ro, rd, fam, idx, pack.perm, sc.tri_vertices, sc.tri_colors, *mats)
+    hit_out = nbytes(*(getattr(hit, f) for f in fields))
+    shade_in = nbytes(ro, rd, coeff, *(getattr(hit, f) for f in fields if f != "index"),
+                      *(() if occ is None else (occ,)), sc.lights.position, sc.lights.intensity,
+                      sc.ambient, sc.background)
+    shade_out = nbytes(*flat)
+    rows = []
+    for kname, fn, b in (("level_hits", hits, hit_in + hit_out),
+                         ("level_shade", shades, shade_in + shade_out)):
+        k_ms = queued_ms(fn, reps)
+        k_host = host_ms(fn, reps)
+        with level_twins():
+            t_ms = queued_ms(fn, twin_reps)
+            t_host = host_ms(fn, twin_reps)
+        bound_ms = b / HBM_BYTES_PER_S * 1e3
+        log(f"  {name} level {level} ({n} lanes, {n // 1024} tiles, branching {branching}): "
+            f"{kname} {k_ms:.4f} device ms, {k_host:.3f} host ms a call; twin {t_ms:.4f} device "
+            f"ms, {t_host:.3f} host ms; bound {bound_ms:.4f} ms by bytes ({b} bytes): the kernel "
+            f"runs at {bound_ms / k_ms:.3f} of the bound")
+        rows.append(dict(ms=k_ms, plain_ms=t_ms, host_ms=k_host, plain_host_ms=t_host,
+                         bound_ms=bound_ms, bound_by="bytes", library_ms=None, lanes=n,
+                         level=level))
+    return rows
 
 
 def progressive_run(name, scene, camera, cfg, band, frame, card):
@@ -1059,8 +1200,8 @@ def main() -> int:
     import numpy as np
 
     from realtrace_tpu_torch.apps import scenes
-    from realtrace_tpu_torch.core.types import RenderConfig, SceneBuilder
-    from realtrace_tpu_torch.ops import accel, cuda_build, sweep
+    from realtrace_tpu_torch.core.types import Materials, RenderConfig, SceneBuilder
+    from realtrace_tpu_torch.ops import accel, cuda_build, level_kernels, sweep
     from realtrace_tpu_torch.render.pipeline import _tiled_rays, render_with_stats
     from realtrace_tpu_torch.utils import profiling
 
@@ -1243,10 +1384,20 @@ def main() -> int:
                          twin_reps=2)
     mask_row = mask_times("mesh_scene 1080p primary", ro, rd, pack, cfg)
     sweep.sweep.launches = sweep.sweep.stream_launches = sweep.mask_kernel.launches = 0
+    level_kernels.hits_kernel.launches = level_kernels.shade_kernel.launches = 0
     render_with_stats(mesh, camera, cfg10)
     mask_launches = sweep.mask_kernel.launches
     check(mask_launches == sweep.sweep.launches > 0,
           f"mesh_scene depth 10: {mask_launches} mask launches, one a sweep launch")
+    level_launches = level_kernels.hits_kernel.launches, level_kernels.shade_kernel.launches
+    check(level_launches == (11, 11),
+          f"mesh_scene depth 10: {level_launches} level kernel launches, one of each a level")
+    close = scenes.make_camera(dict(cam, position=CLOSE_POSITION), W, H, device=dev)
+    level_rows = level_times("bob-close 1080p", mesh, close, cfg10, widest=False)
+    glass_model = dataclasses.replace(mesh, tri_materials=Materials.full(
+        mesh.n_triangles, device=dev, **GLASS_MODEL))
+    glass_rows = level_times("glass model 1080p", glass_model, camera, cfg10, widest=True)
+    del close, glass_model
     k2_row = query_times("x8, streaming kernel, 1080p primary", ro, rd, pack8, cfg, True,
                          twin_reps=1)
     for label, pk, stream, refl, shad in (("mesh_scene, resident kernel,", pack, False,
@@ -1327,7 +1478,15 @@ def main() -> int:
         {"name": "chunk_mask", "route": "cuda", "source": "realtrace_tpu_torch/csrc/chunk_mask.cu",
          "replaces": "realtrace_tpu/ops/pallas/trace.py:_chunk_mask, _compact_front_to_back "
                      "(XLA code, no Pallas kernel)",
-         "depth10_launches": mask_launches, "max_abs_err": 0.0, **mask_row}]}))
+         "depth10_launches": mask_launches, "max_abs_err": 0.0, **mask_row},
+        *({"name": row_name, "route": "cuda", "source": "realtrace_tpu_torch/csrc/level.cu",
+           "replaces": f"no TPU kernel: XLA code of {what}", "depth10_launches": launched,
+           "max_abs_err": 0.0, **row, "glass": glass_row}
+          for row_name, what, launched, row, glass_row in zip(
+              ("level_hits", "level_shade"),
+              ("realtrace_tpu/ops/intersect.py::hit_attributes",
+               "realtrace_tpu/render/shade.py (child geometry and colour of a level)"),
+              level_launches, level_rows, glass_rows))]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

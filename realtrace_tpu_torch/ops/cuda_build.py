@@ -34,7 +34,7 @@ def _nvcc() -> str:
 
 
 def _declare(lib: ctypes.CDLL) -> None:
-    p, i, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    p, i, f32, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
     # ro rd consts meta lo hi chunk_list counts entry out_t out_i tested |
     # nt m c det_eps t_min any_mode device | stream
     for fn in (lib.rt_sweep, lib.rt_sweep_stream):
@@ -43,6 +43,15 @@ def _declare(lib: ctypes.CDLL) -> None:
     # ro rd lo hi chunk_list entry counts | nt m device | stream
     lib.rt_chunk_mask.argtypes = [p] * 7 + [i, i, i, p]
     lib.rt_chunk_mask.restype = i
+    # ro rd fam idx perm | n_perm | tv tc ka kd ks kr kt eta out index valid | n device | stream
+    lib.rt_level_hits.argtypes = [p] * 5 + [i] + [p] * 11 + [i, i, p]
+    lib.rt_level_hits.restype = i
+    # ro rd coeff valid t pos nrm col ka kd ks kr kt eta occ lp li | n_lights | ambient
+    # background | phong_exp legacy_diffuse | blend keep ray_offset neg_sigma x3 | branching
+    # miss_background last | contrib child | n device | stream
+    lib.rt_level_shade.argtypes = ([p] * 17 + [i] + [p] * 2 + [i] * 2 + [f32] * 6 + [i] * 3
+                                   + [p] * 2 + [i, i, p])
+    lib.rt_level_shade.restype = i
     lib.rt_error_string.argtypes = [i]
     lib.rt_error_string.restype = ctypes.c_char_p
 

@@ -17,7 +17,7 @@ from torch import Tensor
 
 from realtrace_tpu_torch.core import vec
 from realtrace_tpu_torch.core.types import BIG, MATERIAL_KEYS, RenderConfig, Scene
-from realtrace_tpu_torch.ops import accel, sweep
+from realtrace_tpu_torch.ops import accel, level_kernels, sweep
 from realtrace_tpu_torch.utils.profiling import spanned
 
 # family codes
@@ -228,7 +228,16 @@ def hit_attributes(scene: Scene, ro: Tensor, rd: Tensor, t_fwd: Tensor, fam: Ten
     """Differentiable attribute recomputation for a selected hit
     ``(t_fwd, fam, idx)`` from ``closest_query``, read from the original
     scene tensors. Each family gathers at ``idx`` on its own lanes (``_rows``;
-    the lanes it does not own are discarded)."""
+    the lanes it does not own are discarded). Where no gradient is recorded
+    through a scene of triangles alone on the card
+    (``level_kernels.takes``), one kernel computes the same ``Hit``."""
+    tm = scene.tri_materials
+    if level_kernels.takes(scene, cfg, pack, ro, rd, scene.tri_vertices, scene.tri_colors,
+                           *(getattr(tm, k) for k in MATERIAL_KEYS)):
+        valid, t, index, position, normal, color, mats = level_kernels.hits_kernel(
+            scene, ro, rd, fam, idx, pack.perm)
+        return Hit(valid=valid, t=t, family=fam, index=index, position=position, normal=normal,
+                   color=color, **mats)
     r = ro.shape[0]
     valid = fam != FAM_NONE
     zero3 = ro.new_zeros((r, 3))
@@ -239,7 +248,6 @@ def hit_attributes(scene: Scene, ro: Tensor, rd: Tensor, t_fwd: Tensor, fam: Ten
 
     if scene.n_triangles:
         m = valid & (fam == FAM_TRI)
-        tm = scene.tri_materials
         table = torch.cat([scene.tri_vertices.reshape(-1, 9), scene.tri_colors.reshape(-1, 9),
                            torch.stack([getattr(tm, k) for k in MATERIAL_KEYS], dim=1)],
                           dim=1)                                   # (N, 24)

@@ -23,7 +23,10 @@ Discrete decisions (hit selection, shadowing) run without gradient inside
 each level (hit attributes, child geometry, colour) runs under
 ``torch.utils.checkpoint``: the backward recomputes it from the level's rays
 and its query results, the only tensors kept. The queries and the compaction
-stay outside, so the backward launches no sweep and syncs no host.
+stay outside, so the backward launches no sweep and syncs no host. Where
+no gradient is recorded through a scene of triangles alone on the card, a
+level's hit attributes and its shading each run as one hand-written kernel
+(``ops/level_kernels.py``), bit-equal to the PyTorch code here.
 """
 from __future__ import annotations
 
@@ -34,9 +37,9 @@ from torch import Tensor
 from torch.utils.checkpoint import checkpoint
 
 from realtrace_tpu_torch.core import vec
-from realtrace_tpu_torch.core.types import (BIG, PARK_DISTANCE, WAVEFRONT_TILE, RenderConfig,
-                                            Scene, tensor_leaves)
-from realtrace_tpu_torch.ops import sweep
+from realtrace_tpu_torch.core.types import (BIG, MATERIAL_KEYS, PARK_DISTANCE, WAVEFRONT_TILE,
+                                            RenderConfig, Scene, tensor_leaves)
+from realtrace_tpu_torch.ops import level_kernels, sweep
 from realtrace_tpu_torch.ops.intersect import (FAM_NONE, Hit, any_hit, closest_query,
                                                hit_attributes)
 from realtrace_tpu_torch.utils.profiling import span, spanned
@@ -321,7 +324,14 @@ def _shade_level(scene: Scene, ro: Tensor, rd: Tensor, coeff: Tensor, t: Tensor,
     level's colour. Returns (colour, children): the children as one
     (ro, rd, coeff) block, the reflect block before the refract block when
     ``branching``; on the last level (``cfg.max_depth``), in place of the
-    children, the background their coefficients take."""
+    children, the background their coefficients take. Given ``hit``, where
+    no gradient is recorded through a scene of triangles alone on the card
+    (``level_kernels.takes``), one kernel computes the same."""
+    if hit is not None and level_kernels.takes(
+            scene, cfg, pack, ro, rd, coeff, hit.t, hit.position, hit.normal, hit.color,
+            *(getattr(hit, k) for k in MATERIAL_KEYS), scene.lights.position,
+            scene.lights.intensity, scene.ambient, scene.background):
+        return level_kernels.shade_kernel(scene, ro, rd, coeff, hit, occ, cfg, branching, level)
     if hit is None:
         hit = hit_attributes(scene, ro, rd, t, fam, idx, cfg, pack=pack)
     valid, is_diel, child, child_t = _children_geom(scene, hit, ro, rd, coeff, cfg, branching)
