@@ -3,19 +3,21 @@
 Counterpart of ``trace_wavefront`` of ``realtrace_tpu/render/shade.py``: the
 reference's recursive ``World::shade_ray`` (Serial/world.cpp:32-111)
 flattened into one loop over bounce levels, each level one dense batch of
-rays. Between levels the wavefront shrinks to the 1024-lane tiles that still
-hold a live lane (dynamic compaction with ``nonzero``; exact, since dropped
-lanes carry zero coefficients), and each level's colour is ``index_add``-ed
-back per tile. In a scene with dielectrics (kr > 0 and kt > 0) a hit spawns a
-reflection AND a refraction child: each level's candidate children are the
-reflect block followed by the refract block, and the wavefront is repacked
-by lane instead (``_live_lanes``, ``_gather_lanes``): the children that carry
-energy, in that order and each block in lane order, packed into dense tiles
-whose last is padded with parked lanes. Each lane carries its pixel, and a
-level's colour reaches its pixels through ``_add_lanes``, in wavefront order.
-So the lanes held are the live lanes rounded up to a tile, however often a
-pixel repeats. Because the compaction is dynamic, no child is ever dropped
-for capacity.
+rays. Between levels the wavefront shrinks, as level 0's does to its hits,
+to the 1024-lane tiles that still hold a live lane (dynamic compaction with
+``nonzero``; exact, since dropped lanes carry zero coefficients), and each
+level's colour is ``index_add``-ed back per tile (``_live_tiles``,
+``_gather_tiles``, ``_take_tiles``, ``_add_tiles``). In a scene with
+dielectrics (kr > 0 and kt > 0) a hit spawns a reflection AND a refraction
+child: each level's candidate children are the reflect block followed by the
+refract block, and the wavefront is repacked by lane instead (``_live_lanes``,
+``_gather_lanes``, ``_take``, ``_add_lanes``: the same four calls, the layout
+chosen once): the children that carry energy, in that order and each block in
+lane order, packed into dense tiles whose last is padded with parked lanes.
+Each lane carries its pixel, and a level's colour reaches its pixels in
+wavefront order. So the lanes held are the live lanes rounded up to a tile,
+however often a pixel repeats. Because the compaction is dynamic, no child is
+ever dropped for capacity.
 
 Discrete decisions (hit selection, shadowing) run without gradient inside
 ``closest_query`` / ``any_hit``; everything else is differentiable. With
@@ -208,17 +210,36 @@ def _shadow_occlusion(scene: Scene, position: Tensor, valid: Tensor, cfg: Render
 
 
 @spanned("rt.p.compaction")
-def _live_tiles(coeff: Tensor) -> Tensor:
-    """Indices of the tiles of a wavefront that hold a lane with energy."""
-    live = torch.any(coeff.detach() > 0.0, dim=-1).reshape(-1, WAVEFRONT_TILE).any(dim=1)
+def _live_tiles(live: Tensor) -> Tensor:
+    """Indices of the tiles of a wavefront that hold a lane of ``live``."""
+    live = live.reshape(-1, WAVEFRONT_TILE).any(dim=1)
     with span("rt.p.sync.live_tiles"):
         return torch.nonzero(live)[:, 0]
 
 
 @spanned("rt.p.compaction")
-def _gather_tiles(x: Tensor, sel: Tensor) -> Tensor:
-    """The tiles ``sel`` of a wavefront array, concatenated."""
+def _take_tiles(x: Tensor, sel: Tensor, fill=None) -> Tensor:
+    """The tiles ``sel`` of a wavefront array, concatenated (whole tiles:
+    nothing to ``fill``)."""
     return x.reshape(-1, WAVEFRONT_TILE, *x.shape[1:])[sel].reshape(-1, *x.shape[1:])
+
+
+def _gather_tiles(sel: Tensor, ro: Tensor, rd: Tensor, coeff: Tensor,
+                  tiles: Tensor | None = None):
+    """The tiles ``sel`` of a wavefront: (ro, rd, coeff, the pixel tile of
+    each, ``tiles[sel]``, or ``sel`` where ``tiles`` is None: each tile its
+    own)."""
+    return (*(_take_tiles(x, sel) for x in (ro, rd, coeff)),
+            sel if tiles is None else tiles[sel])
+
+
+@spanned("rt.p.compaction")
+def _add_tiles(accum: Tensor, tiles: Tensor, x: Tensor) -> Tensor:
+    """accum[tiles] += x, a tile at a time, for the unique pixel tiles
+    ``tiles`` of a wavefront that does not branch: ``accum`` (P, 3), ``x``
+    (R, 3), both whole tiles."""
+    t = WAVEFRONT_TILE
+    return accum.reshape(-1, t, 3).index_add(0, tiles, x.reshape(-1, t, 3)).reshape(-1, 3)
 
 
 def _pad_parked(ro: Tensor, rd: Tensor, coeff: Tensor) -> tuple[Tensor, Tensor, Tensor]:
@@ -232,11 +253,13 @@ def _pad_parked(ro: Tensor, rd: Tensor, coeff: Tensor) -> tuple[Tensor, Tensor, 
             torch.cat([coeff, coeff.new_zeros((pad, 3))]))
 
 
+@spanned("rt.p.compaction")
 def _take(x: Tensor, sel: Tensor, fill) -> Tensor:
     """``x[sel]`` padded up to whole tiles with rows of ``fill``."""
-    pad = (-sel.numel()) % WAVEFRONT_TILE
-    out = x[sel]
-    return torch.cat([out, out.new_full((pad, *x.shape[1:]), fill)]) if pad else out
+    with span("rt.p.repack"):
+        pad = (-sel.numel()) % WAVEFRONT_TILE
+        out = x[sel]
+        return torch.cat([out, out.new_full((pad, *x.shape[1:]), fill)]) if pad else out
 
 
 @spanned("rt.p.compaction")
@@ -246,14 +269,13 @@ def _live_lanes(live: Tensor) -> Tensor:
         return torch.nonzero(live)[:, 0]
 
 
-@spanned("rt.p.compaction")
 def _gather_lanes(sel: Tensor, ro: Tensor, rd: Tensor, coeff: Tensor,
                   pix: Tensor | None = None):
     """The lanes ``sel`` of a wavefront, padded up to whole tiles with parked
     lanes: (ro, rd, coeff, pix or None). A pad lane's pixel is -1, no pixel."""
-    with span("rt.p.repack"):
+    with span("rt.p.compaction"), span("rt.p.repack"):
         ro, rd, coeff = _pad_parked(ro[sel], rd[sel], coeff[sel])
-        return ro, rd, coeff, None if pix is None else _take(pix, sel, -1)
+    return ro, rd, coeff, None if pix is None else _take(pix, sel, -1)
 
 
 @spanned("rt.p.compaction")
@@ -273,15 +295,15 @@ def _add_lanes(accum: Tensor, pix: Tensor, x: Tensor) -> Tensor:
 
 def _merged_query(scene: Scene, hit: Hit, ro: Tensor, rd: Tensor, coeff: Tensor,
                   valid: Tensor, cfg: RenderConfig, pack, branching: bool, last: bool,
-                  exact_mask):
+                  exact_mask, live, gather):
     """The fully merged query of one level (``shadow_any_mode`` off): ONE
     closest query over every light's shadow segment followed by the next
-    level's child rays on their live tiles (live lanes when ``branching``);
-    occluded where a shadow ray hits anything (``fam != FAM_NONE``). The
-    child rays come from a no-grad pass of ``_children_geom``, bit-equal to
-    the shading's own; the last level's children are not queried. Returns
-    (occlusion, live child tiles or lanes or None, the children's (t, fam,
-    idx) or None)."""
+    level's child rays, compacted by the wavefront's ``live`` and
+    ``gather``; occluded where a shadow ray hits anything (``fam !=
+    FAM_NONE``). The child rays come from a no-grad pass of
+    ``_children_geom``, bit-equal to the shading's own; the last level's
+    children are not queried. Returns (occlusion, the kept children or
+    None, their (t, fam, idx) or None)."""
     nl = scene.n_lights
     sh = _shadow_targets(scene, hit.position.detach(), valid, cfg)
     ros, rds = [o for o, _ in sh], [d for _, d in sh]
@@ -291,12 +313,8 @@ def _merged_query(scene: Scene, hit: Hit, ro: Tensor, rd: Tensor, coeff: Tensor,
             _, _, child, child_t = _children_geom(scene, hit, ro, rd, coeff, cfg, branching)
             if branching:
                 child = tuple(torch.cat([a, b]) for a, b in zip(child, child_t))
-        if branching:
-            keep = _live_lanes(torch.any(child[2] > 0.0, dim=-1))
-            ro_c, rd_c, _, _ = _gather_lanes(keep, *child)
-        else:
-            keep = _live_tiles(child[2])
-            ro_c, rd_c = _gather_tiles(child[0], keep), _gather_tiles(child[1], keep)
+        keep = live(torch.any(child[2] > 0.0, dim=-1))
+        ro_c, rd_c, _, _ = gather(keep, *child, None)
         ros.append(ro_c)
         rds.append(rd_c)
     t, fam, idx = closest_query(scene, torch.cat(ros), torch.cat(rds), cfg, pack=pack,
@@ -305,13 +323,6 @@ def _merged_query(scene: Scene, hit: Hit, ro: Tensor, rd: Tensor, coeff: Tensor,
     occ = (fam[:nl * r] != FAM_NONE).reshape(nl, r).any(dim=0)
     s = nl * r
     return occ, keep, (None if last else (t[s:], fam[s:], idx[s:]))
-
-
-@spanned("rt.p.compaction")
-def _add_tiles(accum_t: Tensor, tiles: Tensor, x: Tensor) -> Tensor:
-    """accum_t[tiles] += x for the unique pixel tiles ``tiles`` of a wavefront
-    that does not branch (a branching one goes through ``_add_lanes``)."""
-    return accum_t.index_add(0, tiles, x)
 
 
 @spanned("rt.p.shade")
@@ -359,7 +370,8 @@ def trace_wavefront(scene: Scene, ro: Tensor, rd: Tensor, cfg: RenderConfig,
     actually cast).
 
     Level 0 queries every ray; misses take the background at full width,
-    and the wavefront shrinks to the tiles that hold a hit. In a scene
+    and the wavefront is compacted to its hits as a level's children are
+    to those that carry energy, by the layout of the module doc. In a scene
     without dielectrics every later step runs only on the tiles that still
     hold a live lane: children spawn in their parent's lane, so tiles never
     mix pixels, and a child tile inherits its parent's pixel tile. In a scene
@@ -387,12 +399,10 @@ def trace_wavefront(scene: Scene, ro: Tensor, rd: Tensor, cfg: RenderConfig,
     """
     branching = scene.has_dielectrics()
     remat = cfg.remat and _needs_grad(scene)
-    tile = WAVEFRONT_TILE
     r = ro.shape[0]
     if coeff is None:
         coeff = torch.ones_like(ro)
     ro, rd, coeff = _pad_parked(ro, rd, coeff)
-    nt = ro.shape[0] // tile
     nl = scene.n_lights if cfg.shadows else 0
     # the level's queries: unmerged (per light, JAX's ``shadow_mask`` and
     # ``closest_hit``, which pass no mask argument), fully merged, or default
@@ -402,6 +412,12 @@ def trace_wavefront(scene: Scene, ro: Tensor, rd: Tensor, cfg: RenderConfig,
     pack = None
     if cfg.accel == "sweep" and scene.n_triangles:
         pack = sweep.build_pack(scene, cfg)
+    # the wavefront's layout (module doc), chosen once: whole tiles, each
+    # mapped to its pixel tile (None: to itself), or repacked lanes, each
+    # mapped to its pixel
+    live, gather, take, add, pmap = (
+        (_live_lanes, _gather_lanes, _take, _add_lanes, torch.arange(len(ro), device=ro.device))
+        if branching else (_live_tiles, _gather_tiles, _take_tiles, _add_tiles, None))
 
     nrays = 0
     for level in range(cfg.max_depth + 1):
@@ -417,35 +433,24 @@ def trace_wavefront(scene: Scene, ro: Tensor, rd: Tensor, cfg: RenderConfig,
                 zero = torch.zeros_like(coeff)
                 accum = torch.where((active & (fam == FAM_NONE))[:, None],
                                     coeff * scene.background[None], zero)
-
-                if branching:   # the lanes that hit, each with its pixel
-                    keep = _live_lanes(valid0)
-                    n = keep.numel()
-                    ro_s, rd_s, coeff_s, pix = _gather_lanes(
-                        keep, ro, rd, coeff, torch.arange(ro.shape[0], device=ro.device))
-                    with span("rt.p.compaction"), span("rt.p.repack"):
-                        t, fam, idx = (_take(t, keep, BIG), _take(fam, keep, FAM_NONE),
-                                       _take(idx, keep, 0))
-                else:   # live tiles (the pixel tile of each) and the wavefront gathered to them
-                    accum_t = accum.reshape(nt, tile, 3)
-                    live = valid0.reshape(nt, tile).any(dim=1)
-                    with span("rt.p.compaction"), span("rt.p.sync.live_tiles"):
-                        tiles = torch.nonzero(live)[:, 0]
-                    ro_s, rd_s, coeff_s = (_gather_tiles(x, tiles) for x in (ro, rd, coeff))
-                    t, fam, idx = (_gather_tiles(x, tiles) for x in (t, fam, idx))
+                # the wavefront compacted to its hits, as a level's to its children
+                keep = live(valid0)
+                n = keep.numel()
+                ro_s, rd_s, coeff_s, pmap = gather(keep, ro, rd, coeff, pmap)
+                t, fam, idx = take(t, keep, BIG), take(fam, keep, FAM_NONE), take(idx, keep, 0)
             last = level == cfg.max_depth
             act = torch.any(coeff_s.detach() > 0.0, dim=-1)
             valid = act & (fam != FAM_NONE)
             if level:
                 with span("rt.p.sync.ray_count"):
-                    # a repacked level's live lanes are its first ``n``
-                    live = n if branching else int(act.sum())
-                    rays = live + nl * int(valid.sum())
+                    # lanes: a repacked level's live lanes are its first ``n``
+                    n_live = n if branching else int(act.sum())
+                    rays = n_live + nl * int(valid.sum())
             else:   # a tile level's live lanes are counted when the log is read
-                live = n if branching else act
+                n_live = n if branching else act
             nrays += rays
             held = ro_s.shape[0]
-            level_span.count(rays=rays, tiles=held // tile, live=live, lanes=held)
+            level_span.count(rays=rays, tiles=held // WAVEFRONT_TILE, live=n_live, lanes=held)
             args = (scene, ro_s, rd_s, coeff_s, t, fam, idx)
             hit = None
             if not remat:
@@ -459,7 +464,7 @@ def trace_wavefront(scene: Scene, ro: Tensor, rd: Tensor, cfg: RenderConfig,
                     hit_q = hit
                 if merged:
                     occ, keep, nxt = _merged_query(scene, hit_q, ro_s, rd_s, coeff_s, valid,
-                                                   cfg, pack, branching, last, em)
+                                                   cfg, pack, branching, last, em, live, gather)
                 else:
                     occ = _shadow_occlusion(scene, hit_q.position, valid, cfg, pack=pack,
                                             exact_mask=em, per_light=per_light)
@@ -469,30 +474,19 @@ def trace_wavefront(scene: Scene, ro: Tensor, rd: Tensor, cfg: RenderConfig,
                                             preserve_rng_state=False)
             else:
                 contrib, child = _shade_level(*args, occ, cfg, pack, branching, level, hit=hit)
-            if branching:
-                accum = _add_lanes(accum, pix, contrib)
-                pix = torch.cat([pix, pix])     # the children's: reflect, then refract
-            else:
-                accum_t = _add_tiles(accum_t, tiles, contrib.reshape(-1, tile, 3))
+            accum = add(accum, pmap, contrib)
+            if branching:   # lanes: the children's pixels, reflect block then refract block
+                pmap = torch.cat([pmap, pmap])
             if last:   # ``child`` is the children's background
-                if branching:
-                    accum = _add_lanes(accum, pix, child)
-                else:
-                    accum_t = _add_tiles(accum_t, tiles, child.reshape(-1, tile, 3))
+                accum = add(accum, pmap, child)
                 break
-            if branching:
-                if keep is None:
-                    keep = _live_lanes(torch.any(child[2].detach() > 0.0, dim=-1))
-                n = keep.numel()
-                if not n:       # no child carries energy: nothing more to trace
-                    break
-                ro_s, rd_s, coeff_s, pix = _gather_lanes(keep, *child, pix)
-            else:
-                if keep is None:
-                    keep = _live_tiles(child[2])
-                tiles = tiles[keep]
-                ro_s, rd_s, coeff_s = (_gather_tiles(x, keep) for x in child)
+            if keep is None:
+                keep = live(torch.any(child[2].detach() > 0.0, dim=-1))
+            n = keep.numel()
+            if branching and not n:   # lanes: no child carries energy, nothing more to trace
+                break
+            ro_s, rd_s, coeff_s, pmap = gather(keep, *child, pmap)
             if nxt is None:
                 nxt = closest_query(scene, ro_s, rd_s, cfg, pack=pack, exact_mask=em)
             t, fam, idx = nxt
-    return (accum if branching else accum_t.reshape(-1, 3))[:r], nrays
+    return accum[:r], nrays

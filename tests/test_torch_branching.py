@@ -21,7 +21,7 @@ from realtrace_tpu.render import shade as jshade
 from realtrace_tpu.render.pipeline import render_with_stats as jrender_with_stats
 from realtrace_tpu_torch.apps import scenes
 from realtrace_tpu_torch.core.convert import config_from_dict, scene_to_numpy
-from realtrace_tpu_torch.core.types import RenderConfig, Scene, SceneBuilder
+from realtrace_tpu_torch.core.types import WAVEFRONT_TILE, RenderConfig, Scene, SceneBuilder
 from realtrace_tpu_torch.ops import accel
 from realtrace_tpu_torch.render import shade
 from realtrace_tpu_torch.render.pipeline import render_with_stats
@@ -221,12 +221,15 @@ def test_add_tiles_sums_duplicates_in_wavefront_order():
     once = torch.as_tensor([6, 2, -1])
     assert torch.equal(shade._add_lanes(acc, once, x[:3])[[6, 2]], acc[[6, 2]] + x[:2])
     assert torch.equal(shade._add_lanes(acc, pix[:0], x[:0]), acc)
+    # (P, 3) and (R, 3) arrays of whole tiles, the sums above in each tile's first 2 lanes
     tiles = torch.as_tensor([1, 3, 2])
-    acc_t, xt = acc.reshape(4, 2, 3), x[:6].reshape(3, 2, 3)
+    acc_t, xt = torch.zeros((4, WAVEFRONT_TILE, 3)), torch.zeros((3, WAVEFRONT_TILE, 3))
+    acc_t[:, :2], xt[:, :2] = acc.reshape(4, 2, 3), x[:6].reshape(3, 2, 3)
     want = acc_t.clone()
     for k, t in enumerate(tiles.tolist()):
         want[t] = want[t] + xt[k]
-    assert torch.equal(shade._add_tiles(acc_t, tiles, xt), want)
+    got = shade._add_tiles(acc_t.reshape(-1, 3), tiles, xt.reshape(-1, 3))
+    assert torch.equal(got, want.reshape(-1, 3))
 
 
 @pytest.mark.parametrize("mode", ["bruteforce", "sweep"])

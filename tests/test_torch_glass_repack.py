@@ -1,7 +1,8 @@
 """The branching wavefront's lane repack on the CPU: a glass mesh (the
 dielectric of the serial app's scene block, kt .8, eta 2) at depth 10,
 against the NumPy oracle in f64 at tests/test_golden.py's tolerance; the
-lanes each level holds; that renders repeat bit for bit; and gradients
+lanes each level holds; level 0 compacted through the lanes' calls, and
+each level's host syncs; that renders repeat bit for bit; and gradients
 through the repacked levels against central finite differences."""
 import dataclasses
 
@@ -23,6 +24,7 @@ from realtrace_tpu_torch.utils import profiling
 from test_torch_core import few_torch_threads, to_port  # noqa: F401 (autouse fixture)
 from test_torch_grad import fd_check
 from test_torch_render import assert_images_match
+from test_torch_trace import traced_frame
 
 F64 = torch.float64
 DETAIL = 0.25          # the coarse mesh: 672 triangles, 21 chunks of 32
@@ -31,6 +33,11 @@ DEPTH = 10
 GLASS = dict(ka=0.4, kd=0.9, ks=0.4, kr=0.1, kt=0.8, eta=2.0)
 # the serial framing at 0.6 of its distance: the glass fills 40% of the frame
 CAM = dict(position=(36.0, 36.0, 0.0), target=(0.0, 0.0, 0.0), up=(0.0, 1.0, 0.0), fovy=45.0)
+# each level's ``rt.p.sync`` spans, by site, in the float32 frame; level 0's
+# hold its primary query's and its hits' repack
+LEVEL_SYNCS = ([dict(ray_count=1, mask_const=6, live_lanes=2)]
+               + [dict(ray_count=1, mask_const=4, live_lanes=1)] * (DEPTH - 1)
+               + [dict(ray_count=1, mask_const=2)])
 
 
 def glass_jscene():
@@ -81,6 +88,22 @@ def test_each_level_holds_its_live_lanes_rounded_up_to_a_tile():
         assert c["live"] <= c["lanes"] <= -(-c["live"] // WAVEFRONT_TILE) * WAVEFRONT_TILE
     # every level branches on: the deepest still holds live lanes
     assert counted[-1]["live"] > 0
+
+
+@pytest.fixture(scope="module")
+def glass_traced():
+    return traced_frame(*port_case(dtype=torch.float32))
+
+
+def test_level_0_repacks_through_the_calls_of_every_level(glass_traced):
+    """``_live_lanes`` once at level 0, for its hits, and once at each level
+    that queries children (every level runs, as above); the tiles' never."""
+    calls, syncs = glass_traced
+    assert len(syncs) == DEPTH + 1 and calls == {"_live_lanes": 1 + DEPTH}
+
+
+def test_each_repacked_level_makes_its_host_syncs(glass_traced):
+    assert glass_traced[1] == LEVEL_SYNCS
 
 
 def test_glass_mesh_render_is_bit_identical_twice():

@@ -1,8 +1,12 @@
 """The port's own spans and counters (``utils/profiling.py``): off without a
 profiler, named ``rt.p.*`` under one, a span for every wavefront level whose
 rays add up to the frame's, the sweep's tested counter against the twin's,
-results bit-equal with and without the profiler, and a log that keeps
-profiling sessions apart. CPU only, small shapes."""
+results bit-equal with and without the profiler, a log that keeps
+profiling sessions apart, and the wavefront's layout called the same way at
+every level, with the host syncs each level makes. CPU only, small shapes."""
+import collections
+import dataclasses
+
 import pytest
 import torch
 
@@ -10,6 +14,7 @@ from realtrace_tpu_torch.apps import scenes
 from realtrace_tpu_torch.core.types import RenderConfig, tensor_leaves
 from realtrace_tpu_torch.diff.inverse import make_train_step
 from realtrace_tpu_torch.ops import accel, sweep
+from realtrace_tpu_torch.render import shade
 from realtrace_tpu_torch.render.pipeline import render_with_stats
 from realtrace_tpu_torch.utils import profiling
 
@@ -17,6 +22,14 @@ CFG = RenderConfig(max_depth=3, accel="sweep")
 W, H = 40, 32
 # names the benchmark's own spans and its readers' selections use
 BENCH_NAMES = ("rt.frame", "rt.step")
+# each level's ``rt.p.sync`` spans, by site, in the mesh's frame at depth 3;
+# level 0's hold its primary query's and its hits' compaction
+LEVEL_SYNCS = {
+    "default": [dict(ray_count=1, mask_const=6, live_tiles=2)]
+    + [dict(ray_count=1, mask_const=4, live_tiles=1)] * 2 + [dict(ray_count=1, mask_const=2)],
+    "merged": [dict(ray_count=1, mask_const=4, live_tiles=2)]
+    + [dict(ray_count=1, mask_const=2, live_tiles=1)] * 2 + [dict(ray_count=1, mask_const=2)],
+}
 
 
 @pytest.fixture(autouse=True)
@@ -55,6 +68,35 @@ class Ranges:
 
 def annotations(prof) -> list:
     return [e.name for e in prof.events() if e.name.startswith("rt.")]
+
+
+def traced_frame(scene, camera, cfg):
+    """A frame under the profiler: (the calls of each layout's ``live``,
+    ``_live_tiles`` and ``_live_lanes``; each level's ``rt.p.sync`` spans by
+    site, a Counter a level in order)."""
+    calls = collections.Counter()
+
+    def counted(name, real):
+        def spy(*a, **k):
+            calls[name] += 1
+            return real(*a, **k)
+        return spy
+
+    with pytest.MonkeyPatch.context() as mp, profiler() as prof:
+        for name in ("_live_tiles", "_live_lanes"):
+            mp.setattr(shade, name, counted(name, getattr(shade, name)))
+        render_with_stats(scene, camera, cfg)
+    spans = [e for e in prof.events() if e.name.startswith("rt.p.")]
+    levels = sorted((e for e in spans if e.name.startswith("rt.p.level.")),
+                    key=lambda e: int(e.name.rsplit(".", 1)[1]))
+    syncs = [collections.Counter() for _ in levels]
+    for e in spans:
+        if e.name.startswith("rt.p.sync."):
+            for lv, c in zip(levels, syncs):     # the one level that holds it
+                if lv.time_range.start <= e.time_range.start <= lv.time_range.end:
+                    c[e.name[len("rt.p.sync."):]] += 1
+                    break
+    return calls, syncs
 
 
 def fit_step(scene, camera):
@@ -176,6 +218,25 @@ def test_the_mask_span_counts_tiles_and_listed(mesh):
     assert 0 < c["listed"] < c["tiles"] * pack.n_chunks
     names = annotations(prof)
     assert names.index("rt.p.mask") < names.index("rt.p.kernel.mask")
+
+
+@pytest.fixture(scope="module", params=["default", "merged"])
+def mesh_traced(mesh, request):
+    cfg = dataclasses.replace(CFG, shadow_any_mode=request.param == "default")
+    return request.param, traced_frame(*mesh, cfg)
+
+
+def test_level_0_compacts_through_the_layout_of_every_level(mesh_traced):
+    """A wavefront without dielectrics keeps whole tiles: ``_live_tiles``
+    once at level 0, for its hits, and once at each level that queries
+    children; the lanes' never."""
+    _, (calls, _) = mesh_traced
+    assert calls == {"_live_tiles": 1 + CFG.max_depth}
+
+
+def test_each_level_makes_its_host_syncs(mesh_traced):
+    mode, (_, syncs) = mesh_traced
+    assert syncs == LEVEL_SYNCS[mode]
 
 
 def test_two_sessions_read_only_the_second(mesh):
