@@ -49,7 +49,9 @@ and the script exits 1 without printing a result:
    the level kernels (hit attributes, shading) beside the PyTorch code they
    replace on the close framing's level 0 and on the widest level of the
    mesh made glass, bit-equal, with the least time of their bytes, and their
-   launches on the depth-10 frame (one of each a level);
+   launches on the depth-10 frame (one of each a level); the ray generation
+   kernel beside its PyTorch twin on the 1080p frame, bit-equal, with the
+   least time of its writes, and its launch a frame;
    the sweep kernels on the reflection
    and shadow wavefronts; each of these queries runs under the card's list
    policy, as the main path gives it to the kernel, and holds the kernel's
@@ -589,6 +591,47 @@ def level_times(name, scene, camera, cfg, widest, reps=20, twin_reps=5):
                          bound_ms=bound_ms, bound_by="bytes", library_ms=None, lanes=n,
                          level=level))
     return rows
+
+
+def raygen_times(name, camera, reps=20, twin_reps=5):
+    """The ray generation kernel against its PyTorch twin
+    (``_tiled_rays_reference``) on ``camera``'s frame, bit for bit; each
+    one's device time (``queued_ms``) and host ms a call, and the least time
+    the card could take: the outputs written once (the kernel reads only the
+    camera's ten numbers) at HBM_BYTES_PER_S. Returns the kernel's row."""
+    import torch
+
+    from realtrace_tpu_torch.render.pipeline import _tiled_rays, _tiled_rays_reference
+
+    def kernel():
+        return _tiled_rays(camera)
+
+    def twin():
+        return _tiled_rays_reference(camera, 0, 0, camera.width, camera.height)
+
+    def host_ms(fn, reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / reps
+
+    got, want = kernel(), twin()
+    check(all((a is None and b is None) or torch.equal(a.view(torch.int32), b.view(torch.int32))
+              for a, b in zip(got, want)),
+          f"{name}: the ray generation kernel equals the PyTorch code bit for bit")
+    ro, rd, coeff = got
+    n = rd.shape[0]
+    written = rd.numel() * 4 + (0 if coeff is None else (ro.numel() + n) * 4)
+    k_ms, k_host = queued_ms(kernel, reps), host_ms(kernel, reps)
+    t_ms, t_host = queued_ms(twin, twin_reps), host_ms(twin, twin_reps)
+    bound_ms = written / HBM_BYTES_PER_S * 1e3
+    log(f"  {name} ({n} slots): raygen {k_ms:.4f} device ms, {k_host:.3f} host ms a call; twin "
+        f"{t_ms:.4f} device ms, {t_host:.3f} host ms; bound {bound_ms:.4f} ms by bytes "
+        f"({written} bytes written): the kernel runs at {bound_ms / k_ms:.3f} of the bound")
+    return dict(ms=k_ms, plain_ms=t_ms, host_ms=k_host, plain_host_ms=t_host, bound_ms=bound_ms,
+                bound_by="bytes", library_ms=None, slots=n)
 
 
 def progressive_run(name, scene, camera, cfg, band, frame, card):
@@ -1201,7 +1244,7 @@ def main() -> int:
 
     from realtrace_tpu_torch.apps import scenes
     from realtrace_tpu_torch.core.types import Materials, RenderConfig, SceneBuilder
-    from realtrace_tpu_torch.ops import accel, cuda_build, level_kernels, sweep
+    from realtrace_tpu_torch.ops import accel, cuda_build, level_kernels, raygen, sweep
     from realtrace_tpu_torch.render.pipeline import _tiled_rays, render_with_stats
     from realtrace_tpu_torch.utils import profiling
 
@@ -1385,7 +1428,10 @@ def main() -> int:
     mask_row = mask_times("mesh_scene 1080p primary", ro, rd, pack, cfg)
     sweep.sweep.launches = sweep.sweep.stream_launches = sweep.mask_kernel.launches = 0
     level_kernels.hits_kernel.launches = level_kernels.shade_kernel.launches = 0
+    raygen.raygen_kernel.launches = 0
     render_with_stats(mesh, camera, cfg10)
+    raygen_launches = raygen.raygen_kernel.launches
+    check(raygen_launches == 1, f"mesh_scene depth 10: {raygen_launches} raygen launches, one")
     mask_launches = sweep.mask_kernel.launches
     check(mask_launches == sweep.sweep.launches > 0,
           f"mesh_scene depth 10: {mask_launches} mask launches, one a sweep launch")
@@ -1397,6 +1443,7 @@ def main() -> int:
     glass_model = dataclasses.replace(mesh, tri_materials=Materials.full(
         mesh.n_triangles, device=dev, **GLASS_MODEL))
     glass_rows = level_times("glass model 1080p", glass_model, camera, cfg10, widest=True)
+    raygen_row = raygen_times("1080p frame", camera)
     del close, glass_model
     k2_row = query_times("x8, streaming kernel, 1080p primary", ro, rd, pack8, cfg, True,
                          twin_reps=1)
@@ -1486,7 +1533,10 @@ def main() -> int:
               ("level_hits", "level_shade"),
               ("realtrace_tpu/ops/intersect.py::hit_attributes",
                "realtrace_tpu/render/shade.py (child geometry and colour of a level)"),
-              level_launches, level_rows, glass_rows))]}))
+              level_launches, level_rows, glass_rows)),
+        {"name": "raygen", "route": "cuda", "source": "realtrace_tpu_torch/csrc/level.cu",
+         "replaces": "no TPU kernel: XLA code of realtrace_tpu/render/pipeline.py::_tiled_rays",
+         "depth10_launches": raygen_launches, "max_abs_err": 0.0, **raygen_row}]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

@@ -2,7 +2,8 @@
 // kernels for Hopper (sm_90a): level_hits_kernel, the hit attributes of the
 // level's closest hits, and level_shade_kernel, the level's colour and its
 // child rays. The shadow query runs between the two: it needs the hit
-// positions, and the colour needs its answer.
+// positions, and the colour needs its answer. Beside them, raygen_kernel makes
+// the wavefront's first level, the tile-major primary rays of a pixel tile.
 //
 // Replaces no TPU kernel: the JAX package leaves these steps to XLA
 // (realtrace_tpu/ops/intersect.py::hit_attributes and the shading of
@@ -43,6 +44,21 @@
 // accumulators a thread (dot3 and light_sum below); both start from +0.0, so
 // a result of -0.0 comes out +0.0.
 //
+// raygen_kernel computes render/pipeline.py::_tiled_rays_reference: the
+// camera's basis and focal length (render/camera.py::Camera.basis, _focal),
+// then each slot's pixel and ray direction (Camera.ray_directions_at) in the
+// same rounded steps. It replaces no TPU kernel (the JAX package leaves ray
+// generation to XLA); it was added because the PyTorch code built the
+// tile-major pixel maps on the host and uploaded 35 MB of them from pageable
+// memory every 1080p frame, behind ~100 small launches. A slot's pixel is
+// integer arithmetic on its index, so the kernel reads nothing but the
+// camera's ten numbers. Bound: the writes, 28 bytes a slot (rd, ro and
+// coeff), 58.5 MB at 1080p, 0.017 ms at 3.35 TB/s; each thread recomputes
+// the basis, ~100 operations and one tanf, far below the FP32 rate. A division
+// by a Python number is, as PyTorch's CUDA div does it, a product with the
+// number's float reciprocal; `1.0 / x` is PyTorch's reciprocal, a true
+// division.
+//
 // The launches allocate nothing, run on the caller's stream and return
 // cudaGetLastError(), so a refused launch is reported.
 
@@ -56,6 +72,8 @@ constexpr int kColumns = 25;       // the hit table: vertices 9, colours 9, mate
 constexpr int kMaxLights = 8;      // ops/level_kernels.py::MAX_LIGHTS
 constexpr long long kFamNone = 0;  // ops/intersect.py's family codes
 constexpr long long kFamTri = 1;
+constexpr int kTileSide = 32;      // render/pipeline.py: a wavefront tile is 32x32 pixels
+constexpr int kTileRays = kTileSide * kTileSide;
 
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
@@ -359,6 +377,54 @@ __global__ void __launch_bounds__(kThreads) level_shade_kernel(const ShadeArgs a
   store3(a.contrib, i, V3{out[0], out[1], out[2]});
 }
 
+// core/vec.py::cross, written out per component
+__device__ __forceinline__ V3 cross3(V3 a, V3 b) {
+  return {sub(mul(a.y, b.z), mul(a.z, b.y)), sub(mul(a.z, b.x), mul(a.x, b.z)),
+          sub(mul(a.x, b.y), mul(a.y, b.x))};
+}
+
+struct RaygenArgs {
+  const float *position, *target, *up, *fovy;  // the camera: (3,), (3,), (3,), ()
+  int width, height;                           // the camera's frame
+  float aspect, half_w, half_h, deg;           // width / height, width / 2, height / 2, pi / 180
+  int i0, j0, tile_w, tile_h, tiles_x;         // the pixel tile; 32x32 tiles in a padded row
+  float park;                                  // core/types.py::PARK_DISTANCE
+  float *ro, *rd, *coeff;                      // (n, 3), (n, 3), (n,); ro, coeff null: no pads
+  int n;
+};
+
+__global__ void __launch_bounds__(kThreads) raygen_kernel(const RaygenArgs a) {
+  const int s = blockIdx.x * kThreads + threadIdx.x;
+  if (s >= a.n) return;
+  const int tile = s / kTileRays, in = s % kTileRays;
+  const int ci = tile % a.tiles_x * kTileSide + in % kTileSide;   // column in the tile
+  const int cj = tile / a.tiles_x * kTileSide + in / kTileSide;   // row from the bottom
+  if (ci >= a.tile_w || cj >= a.tile_h) {                         // a pad slot, parked
+    store3(a.ro, s, V3{a.park, a.park, a.park});
+    store3(a.rd, s, V3{1.0f, 0.0f, 0.0f});
+    a.coeff[s] = 0.0f;
+    return;
+  }
+  const V3 pos = load3(a.position, 0);
+  const V3 up = normalize(load3(a.up, 0));
+  const V3 w = normalize(sub3(pos, load3(a.target, 0)));
+  const V3 u = normalize(cross3(up, w));
+  const V3 v = normalize(cross3(w, u));
+  const float focal = quo(1.0f, mul(2.0f, tanf(mul(mul(*a.fovy, a.deg), 0.5f))));
+  const float xw = mul(mul(add(sub(static_cast<float>(ci + a.i0), a.half_w), 0.5f), a.aspect),
+                       quo(1.0f, static_cast<float>(a.width)));
+  const float yw = mul(add(sub(static_cast<float>(cj + a.j0), a.half_h), 0.5f),
+                       quo(1.0f, static_cast<float>(a.height)));
+  const V3 fw = scale3(neg3(w), focal);
+  const V3 d{add(add(fw.x, mul(u.x, xw)), mul(v.x, yw)), add(add(fw.y, mul(u.y, xw)), mul(v.y, yw)),
+             add(add(fw.z, mul(u.z, xw)), mul(v.z, yw))};
+  store3(a.rd, s, normalize(d));
+  if (a.ro != nullptr) {
+    store3(a.ro, s, pos);
+    a.coeff[s] = 1.0f;
+  }
+}
+
 int blocks(int n) { return (n + kThreads - 1) / kThreads; }
 
 }  // namespace
@@ -410,5 +476,29 @@ extern "C" int rt_level_shade(const float* ro, const float* rd, const float* coe
     level_shade_kernel<true><<<blocks(n), kThreads, 0, s>>>(a);
   else
     level_shade_kernel<false><<<blocks(n), kThreads, 0, s>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The tile-major rays of the pixel tile [i0, i0 + tile_w) x [j0, j0 + tile_h)
+// of a width x height camera (position, target, up: (3,); fovy: ()): rd (n, 3)
+// and, where the tile leaves pad slots (ro, coeff not null), ro (n, 3) and
+// coeff (n,). n = the padded tile's slots, tiles_x * 32 columns wide.
+extern "C" int rt_raygen(const float* position, const float* target, const float* up,
+                         const float* fovy, int width, int height, float aspect, float half_w,
+                         float half_h, float deg, int i0, int j0, int tile_w, int tile_h,
+                         int tiles_x, float park, float* ro, float* rd, float* coeff, int n,
+                         int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n == 0) return 0;
+  if (tiles_x <= 0 || n % (tiles_x * kTileRays) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int wp = tiles_x * kTileSide, hp = n / wp;
+  const bool pads = tile_w < wp || tile_h < hp;
+  if (tile_w > wp || tile_h > hp || (ro != nullptr) != pads || (coeff != nullptr) != pads)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const RaygenArgs a{position, target, up, fovy, width, height, aspect, half_w, half_h, deg,
+                     i0, j0, tile_w, tile_h, tiles_x, park, ro, rd, coeff, n};
+  raygen_kernel<<<blocks(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

@@ -52,6 +52,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.rt_level_shade.argtypes = ([p] * 17 + [i] + [p] * 2 + [i] * 2 + [f32] * 6 + [i] * 3
                                    + [p] * 2 + [i, i, p])
     lib.rt_level_shade.restype = i
+    # position target up fovy | width height | aspect half_w half_h deg | i0 j0 tile_w tile_h
+    # tiles_x | park | ro rd coeff | n device | stream
+    lib.rt_raygen.argtypes = [p] * 4 + [i] * 2 + [f32] * 4 + [i] * 5 + [f32] + [p] * 3 + [i, i, p]
+    lib.rt_raygen.restype = i
     lib.rt_error_string.argtypes = [i]
     lib.rt_error_string.restype = ctypes.c_char_p
 

@@ -33,12 +33,18 @@ class Camera:
     @staticmethod
     def make(position, target, up, fovy, width, height, dtype=torch.float32,
              device=None) -> "Camera":
+        """The camera's ten numbers, each rounded to ``dtype`` as
+        ``torch.as_tensor`` rounds it, go to ``device`` in one copy;
+        ``position``, ``target``, ``up`` and ``fovy`` are views of it."""
         device = default_device(device)
-
-        def t(x):
-            with span("rt.p.sync.camera"):
-                return torch.as_tensor(x, dtype=dtype, device=device)
-        return Camera(position=t(position), target=t(target), up=t(up), fovy=t(fovy),
+        host = torch.cat([torch.as_tensor(x, dtype=dtype, device="cpu").reshape(-1)
+                          for x in (position, target, up, fovy)])
+        if host.shape != (10,):
+            raise ValueError(f"Camera.make: {host.shape[0]} numbers, want position, target "
+                             "and up of 3 and one fovy")
+        with span("rt.p.sync.camera"):
+            buf = host.to(device)
+        return Camera(position=buf[0:3], target=buf[3:6], up=buf[6:9], fovy=buf[9],
                       width=int(width), height=int(height))
 
     def to(self, device) -> "Camera":

@@ -12,11 +12,12 @@ import torch
 from torch import Tensor
 
 from realtrace_tpu_torch.core.types import PARK_DISTANCE, WAVEFRONT_TILE, RenderConfig, Scene
+from realtrace_tpu_torch.ops import raygen
 from realtrace_tpu_torch.render.camera import Camera, image_from_buffer
 from realtrace_tpu_torch.render.shade import trace_wavefront
-from realtrace_tpu_torch.utils.profiling import span, spanned
+from realtrace_tpu_torch.utils.profiling import span
 
-_TH = _TW = 32   # a wavefront tile is a 32x32 pixel block
+_TH = _TW = raygen.TILE_SIDE   # a wavefront tile is a 32x32 pixel block
 
 
 @functools.lru_cache(maxsize=16)
@@ -25,9 +26,8 @@ def _tile_maps(width: int, height: int):
     32x32 pixel tile, so a sweep tile's rays are spatially compact. The image
     is padded up to the tile grid; pad slots are parked zero-coefficient rays.
 
-    Returns (ii, jj, valid, inv) as numpy arrays: per padded slot the pixel
-    column ``ii`` and row-from-bottom ``jj`` (0 on pads) and ``valid``; and
-    ``inv`` (H*W,), the slot of each row-major pixel.
+    Returns (ii, jj, valid) as numpy arrays: per padded slot the pixel
+    column ``ii`` and row-from-bottom ``jj`` (0 on pads) and ``valid``.
     """
     assert _TH * _TW == WAVEFRONT_TILE
     hp = -(-height // _TH) * _TH
@@ -40,12 +40,7 @@ def _tile_maps(width: int, height: int):
     ii = tilemajor(ii_g)
     jj = tilemajor(jj_g)
     valid = (ii < width) & (jj < height)
-    padpos = np.empty(hp * wp, np.int64)
-    padpos[tilemajor(np.arange(hp * wp).reshape(hp, wp))] = np.arange(hp * wp)
-    inv = padpos.reshape(hp, wp)[:height, :width].reshape(-1)
-    ii = np.where(valid, ii, 0)
-    jj = np.where(valid, jj, 0)
-    return ii, jj, valid, inv
+    return np.where(valid, ii, 0), np.where(valid, jj, 0), valid
 
 
 def _untile(buf: Tensor, tile_w: int, tile_h: int) -> Tensor:
@@ -57,17 +52,30 @@ def _untile(buf: Tensor, tile_w: int, tile_h: int) -> Tensor:
     return img[:tile_h, :tile_w].reshape(-1, 3)
 
 
-@spanned("rt.p.raygen")
 def _tiled_rays(camera: Camera, i0: int = 0, j0: int = 0, tile_w: int | None = None,
                 tile_h: int | None = None):
     """Tile-major padded wavefront inputs (ro, rd, coeff) of the pixel tile
     [i0, i0+tile_w) x [j0, j0+tile_h) (default: the whole frame): rays are
     generated directly at tile-major pixel coordinates, equal to the full
     frame's for the same pixels. ``coeff`` is None when the tile fills the
-    32x32 grid; otherwise zero on pad slots, which are parked."""
+    32x32 grid; otherwise zero on pad slots, which are parked. Where
+    ``ops/raygen.py::takes`` holds (a CUDA float32 camera, no gradient
+    recorded through it) one kernel makes them; else the PyTorch code,
+    ``_tiled_rays_reference``. The span counts ``rays``, the slots made."""
     tile_w = camera.width if tile_w is None else tile_w
     tile_h = camera.height if tile_h is None else tile_h
-    ii, jj, valid, _ = _tile_maps(tile_w, tile_h)
+    with span("rt.p.raygen") as s:
+        make = raygen.raygen_kernel if raygen.takes(camera) else _tiled_rays_reference
+        ro, rd, coeff = make(camera, i0, j0, tile_w, tile_h)
+        s.count(rays=rd.shape[0])
+    return ro, rd, coeff
+
+
+def _tiled_rays_reference(camera: Camera, i0: int, j0: int, tile_w: int, tile_h: int):
+    """``_tiled_rays`` in PyTorch, from the host-built tile maps: the
+    kernel's twin, and the path of the CPU, float64 and grad-recording
+    cameras."""
+    ii, jj, valid = _tile_maps(tile_w, tile_h)
     rd = camera.ray_directions_at(ii + i0, jj + j0)
     ro = camera.position.expand_as(rd)
     if valid.all():
