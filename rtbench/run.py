@@ -17,6 +17,10 @@ with ``--trace 1`` a ``breakdown``, and last ``checks``: each number
 compared beside its limit, which also end standard error. An earlier line
 gives the rays and sweep launches a frame and the card.
 
+A cell whose configuration has a ``parallel`` block runs one rank a card
+(``rtbench/shard.py``): this process is rank 0, times the window and alone
+prints; peak memory is the fullest card's.
+
 It needs as many CUDA cards as the cell asks for and exits 2 without them.
 It exits 3, printing no result, when a module of JAX or of the JAX package
 (``realtrace_tpu``) was loaded.
@@ -34,7 +38,7 @@ T0 = time.time()
 
 import torch  # noqa: E402
 
-from rtbench import check, manifest, trace, workload  # noqa: E402
+from rtbench import check, manifest, shard, trace, workload  # noqa: E402
 
 OUT = manifest.HERE / "out"          # what a traced run writes: the profiler's Chrome trace
 THREADS = 2                          # torch's host threads
@@ -67,11 +71,13 @@ class Context:
     ``host_ms`` (each layer's host time a unit over the window, from the
     spans' clock), ``trace`` (``rtbench.trace.Trace``, the profiled stretch
     after the window) and ``sweeps`` (its closest queries); the cell's
-    ``arrays``, ``config`` and ``device``. A reader may leave details in
-    ``notes``, which the earlier line prints."""
+    ``arrays``, ``config`` and ``device``; in a traced run ``rank_rays``,
+    each rank's rays a unit of the stretch. A reader may leave
+    details in ``notes``, which the earlier line prints."""
 
     def __init__(self, **kw):
         self.trace = None
+        self.rank_rays = None
         self.sweeps = []
         self.host_ms = {}
         self.notes = {}          # what readers add to the earlier line
@@ -79,11 +85,15 @@ class Context:
 
 
 def run_cell(name: str, seed: int, seconds: float, traced: bool, device="cuda",
-             config_overrides: dict | None = None, traffic_overrides: dict | None = None) -> dict:
+             config_overrides: dict | None = None, traffic_overrides: dict | None = None,
+             rank: int = 0, coordinator: str | None = None) -> dict | None:
     """One run of a cell: its result object, and in ``_extra`` the earlier
     line's content. ``device`` and the overrides (keys merged into the
     configuration and the traffic mix) are for tests at a small size on the
-    CPU."""
+    CPU. A configuration with ``parallel`` runs one rank a card
+    (``rtbench/shard.py``): this process is rank 0 and starts the others,
+    which run this function as ``rank`` k of the group at ``coordinator``,
+    follow rank 0's window and return None."""
     start = process_start()
     seed %= 1 << 63
     man = manifest.load()
@@ -97,11 +107,16 @@ def run_cell(name: str, seed: int, seconds: float, traced: bool, device="cuda",
     torch.backends.cudnn.allow_tf32 = False
     cuda = torch.device(device).type == "cuda"
 
+    job = dict(cell=name, seed=seed, traced=traced, device=str(device),
+               config_overrides=config_overrides, traffic_overrides=traffic_overrides)
+    ranks = shard.ranks(config, cell, job, rank, coordinator)
+    device = ranks.device
     spans = trace.Spans() if traced else None
     if spans:
         spans.install()
+    ok = False
     try:
-        loop = workload.KINDS[mix["kind"]](config, mix, seed, device)
+        loop = workload.KINDS[mix["kind"]](config, mix, seed, device, ranks.mesh)
         loop.setup()
         from realtrace_tpu_torch.ops import sweep
         launches0 = (sweep.sweep.launches, sweep.sweep.stream_launches)
@@ -111,16 +126,17 @@ def run_cell(name: str, seed: int, seconds: float, traced: bool, device="cuda",
         if spans:
             spans.clock.reset()
         lat = []
-        t_start = time.time()
+        t_start, cpu0 = time.time(), time.process_time()
         setup_s = t_start - start
         t_end, deadline, k = t_start, t_start + seconds, 0
-        while t_end < deadline:
+        while ranks.more(t_end < deadline):
             t0 = time.time()
             loop.run(k)
             t_end = time.time()
             lat.append(t_end - t0)
             k += 1
         window_units = k
+        window_cpu = time.process_time() - cpu0
         peak = torch.cuda.max_memory_allocated() if cuda else 0
         launches = (sweep.sweep.launches - launches0[0], sweep.sweep.stream_launches - launches0[1])
         host_s = dict(spans.clock.seconds) if spans else {}
@@ -137,12 +153,25 @@ def run_cell(name: str, seed: int, seconds: float, traced: bool, device="cuda",
             k += mix["traced_units"]
             spans.capturing = False
             prof.stop()
+        per_rank = ranks.gather(dict(
+            peak=peak, setup_peak=setup_peak, cpu_share=window_cpu / max(t_end - t_start, 1e-9),
+            rays=shard.log_rays(ranks.mark) / mix["traced_units"] if traced else None))
+        ok = True
     finally:
         if spans:
             spans.remove()
+        ranks.close(ok)
+    if rank:
+        return None
+    peak = max(r["peak"] for r in per_rank)
+    setup_peak = max(r["setup_peak"] for r in per_rank)
     ctx = Context(seconds=t_end - t_start, units=window_units, latencies=lat, setup_s=setup_s,
                   peak_bytes=peak, arrays=loop.arrays, config=config, device=device,
-                  host_ms={n: v * 1e3 / window_units for n, v in host_s.items()})
+                  host_ms={n: v * 1e3 / window_units for n, v in host_s.items()},
+                  rank_rays=[r["rays"] for r in per_rank] if traced else None)
+    # each rank's peak, and its host CPU seconds over the window a second of it
+    ctx.notes.update(rank_peak_gib=[r["peak"] / GIB for r in per_rank],
+                     rank_cpu_share=[r["cpu_share"] for r in per_rank], rank_rays=ctx.rank_rays)
     if prof is not None:
         OUT.mkdir(exist_ok=True)
         path = OUT / "trace.json"

@@ -1,8 +1,9 @@
 """The check's teeth: whole runs of each cell at a tiny size on the CPU (the
 harness's look for a card skipped), sound and with the timed path broken
 underneath, and the control. A sound run is correct; every fault the cell
-can have, and the control, come out not correct. (No cell spans chips, so
-there is no exchange to leave out.)"""
+can have, and the control, come out not correct. The four-card fit's own
+fault, the exchange between the ranks left out, and its ranks are in
+``test_rtbench_shard.py``."""
 import pytest
 import torch
 

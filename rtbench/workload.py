@@ -20,7 +20,11 @@ Two kinds of mix, each a data file (``rtbench/traffic/<mix>.json``):
   change, which the reference follows from the configuration's scene. Every
   step of the loop first copies the parameters and Adam's moments aside, so
   that after the run the reference also follows its last ``WINDOW_STEPS``
-  steps, from the program's own state before them.
+  steps, from the program's own state before them. Given a ``mesh`` (a
+  configuration with a ``parallel`` block: one rank a card,
+  ``rtbench/shard.py``), each rank steps ``parallel/mesh.py``'s sharded
+  train step on its pixel tile of the same target, with the scene broadcast
+  from rank 0.
 
 Each loop's ``check`` runs the reference (``rtbench/reference.py``) once
 the program's state is released, and returns the numbers of
@@ -77,12 +81,13 @@ def program_camera(cam: dict, width: int, height: int, device):
 
 class Loop:
     """What the two kinds share: the configuration's arrays and render
-    settings, the seed and the device."""
+    settings, the seed, the device and the ranks' ``mesh`` (None on one
+    device)."""
 
     unit = "rt.unit"
 
-    def __init__(self, config: dict, traffic: dict, seed: int, device):
-        self.config, self.traffic, self.seed = config, traffic, seed
+    def __init__(self, config: dict, traffic: dict, seed: int, device, mesh=None):
+        self.config, self.traffic, self.seed, self.mesh = config, traffic, seed, mesh
         self.device = torch.device(device)
         self.width, self.height = config["width"], config["height"]
         self.arrays = scene.scene_arrays(config)
@@ -111,6 +116,8 @@ class Orbit(Loop):
         from realtrace_tpu_torch.core.types import RenderConfig
         from realtrace_tpu_torch.ops import accel
 
+        if self.mesh is not None:
+            raise ValueError("the orbit runs on one device")
         self.plan()
         self.cfg = RenderConfig(**self.config["render"])
         self.scene = accel.with_chunks(program_scene(self.arrays, self.device), self.cfg)
@@ -187,22 +194,19 @@ class Fit(Loop):
 
     def setup(self) -> None:
         from realtrace_tpu_torch.core.types import Lights, RenderConfig
-        from realtrace_tpu_torch.diff import inverse
         from realtrace_tpu_torch.ops import accel
         from realtrace_tpu_torch.render import pipeline
 
         self.plan()
         self.cfg = RenderConfig(**self.config["render"])
-        base = accel.with_chunks(program_scene(self.arrays, self.device), self.cfg)
+        base = accel.with_chunks(self.program_scene(), self.cfg)
         camera = program_camera(self.camera(), self.width, self.height, self.device)
         tgt_scene = dataclasses.replace(
             base, tri_colors=self.target_colors,
             lights=Lights(position=base.lights.position, intensity=self.target_intensity))
         with torch.no_grad():
             target = pipeline.render_buffer(tgt_scene, camera, self.cfg)
-        self.step, params, self.opt = inverse.make_train_step(
-            base, camera, self.cfg, target, lr=self.traffic["lr"],
-            fields=tuple(self.traffic["fields"]))
+        self.step, params, self.opt = self.train_step(base, camera, target)
         names, self.params = leaf_names(params)
         if names != self.leaves:
             raise RuntimeError(f"the program trains {names}, the reference {self.leaves}")
@@ -220,6 +224,29 @@ class Fit(Loop):
         self.ring_t, self.ring_loss = [0] * WINDOW_STEPS, [None] * WINDOW_STEPS
         self.units = 0
         sync(self.device)
+
+    def program_scene(self):
+        """The program's scene; over ranks, rank 0's on every rank."""
+        s = program_scene(self.arrays, self.device)
+        if self.mesh is None:
+            return s
+        from realtrace_tpu_torch.parallel import mesh
+
+        return mesh.replicate_scene(s, self.mesh)
+
+    def train_step(self, scene, camera, target):
+        """``(step, params, optimizer)`` of the program's train step against
+        ``target``, the flat bottom-up buffer ``render_buffer`` gives; over
+        ranks the sharded step, which takes the (H, W, 3) top-down image."""
+        kw = dict(lr=self.traffic["lr"], fields=tuple(self.traffic["fields"]))
+        if self.mesh is None:
+            from realtrace_tpu_torch.diff import inverse
+
+            return inverse.make_train_step(scene, camera, self.cfg, target, **kw)
+        from realtrace_tpu_torch.parallel import mesh
+
+        image = torch.flip(target.reshape(self.height, self.width, 3), dims=(0,))
+        return mesh.make_sharded_train_step(scene, camera, self.cfg, image, self.mesh, **kw)
 
     def tensors(self) -> list:
         """The program's state that a step changes: the leaves, then Adam's
