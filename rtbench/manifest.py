@@ -3,11 +3,13 @@
 A cell (one entry of ``workloads``) names a configuration and a traffic mix;
 each is a data file found by its name (``configs`` gives the configuration's
 file, ``rtbench/traffic/<mix>.json``), and the correctness limits of a cell
-are ``rtbench/limits/<cell>.json``. Every metric is a small reader of its
-own, ``rtbench/e2e/<name>.py`` or ``rtbench/metrics/<name>.py``, with a
-function ``read(ctx)`` that returns a number, or None where it finds nothing
-to read. A later cell, mix or metric is a new file and a new entry: no file
-here changes.
+are ``rtbench/limits/<cell>.json``. A configuration's ``scene["mesh"]`` names
+its scene kind, a builder file ``rtbench/scenes/<kind>.py`` with a function
+``build(scene)`` that returns its triangles and spheres (``rtbench/scene.py``).
+Every metric is a small reader of its own, ``rtbench/e2e/<name>.py`` or
+``rtbench/metrics/<name>.py``, with a function ``read(ctx)`` that returns a
+number, or None where it finds nothing to read. A later cell, configuration,
+scene kind, mix or metric is a new file and a new entry: no file here changes.
 """
 from __future__ import annotations
 

@@ -12,12 +12,14 @@ together as a batch, each carrying its pixel and its coefficient, so the
 recursion is a sum over levels and autograd differentiates it as written
 (hit selection and shadowing are held fixed, as in the program).
 
-The closest-hit search is brute force over triangles, culled by the boxes of
-groups of 32 triangles from a median split (``median_split``, a frozen copy
-of the program's host ordering): a ray is tested against every triangle of
-every group whose box its line enters (with a generous pad), which drops no
-hit. It imports neither the program nor JAX and takes nothing the program
-made: scene arrays and cameras come from ``rtbench.scene``.
+The closest-hit search is brute force over triangles and spheres, culled by
+the boxes of groups of 32 from a median split (``median_split``, a frozen
+copy of the program's host ordering): a ray is tested against every
+primitive of every group whose box its line enters (with a generous pad),
+which drops no hit. It runs in blocks of bounded size, so that no tensor of
+(rays x primitives) is formed. It imports neither the program nor JAX and
+takes nothing the program made: scene arrays and cameras come from
+``rtbench.scene``.
 
 ``Reference(cfg, device)`` computes in float64. With ``lowp`` it is the
 control: float32, with the operands of every ray/triangle product rounded to
@@ -33,11 +35,17 @@ import torch
 from torch import Tensor
 
 GROUP = 32                 # triangles per reference group
+SPH_GROUP = 32             # spheres per reference group
 SLAB_ELEMS = 1 << 23       # (ray, group) slab tests per block
-PAIR_TESTS = 1 << 22       # (ray, triangle) tests per block
+PAIR_TESTS = 1 << 22       # (ray, primitive) tests per block
 # relative and absolute pad of the group slab test, by dtype: far above the
 # test's rounding, so no grazing hit is dropped
 PAD = {torch.float64: 1e-9, torch.float32: 1e-5}
+# a sphere group's box grows by this share of its distance from the ray's
+# origin: the sphere test's discriminant loses ~20 ulp of |origin - centre|^2,
+# so it can pass a ray that misses by sqrt(20 ulp) of that distance (f32
+# 1.1e-3, f64 4.7e-8); the box keeps every such ray
+SPH_MARGIN = {torch.float64: 1e-6, torch.float32: 1e-2}
 INF = float("inf")
 
 
@@ -112,9 +120,12 @@ def slab(ro: Tensor, inv: Tensor, lo: Tensor, hi: Tensor):
 
 class Groups:
     """The reference grouping of a triangle set: ``perm`` (G, GROUP) original
-    indices, ``count`` (G,) distinct triangles per group, and the boxes."""
+    indices, ``count`` (G,) distinct triangles per group, and the boxes; and
+    of the spheres at ``sph_center``, if any: ``sph_perm`` (G', SPH_GROUP)
+    (their boxes follow the spheres' tensors at each query)."""
 
-    def __init__(self, tri_vertices: Tensor, perm: np.ndarray | None = None):
+    def __init__(self, tri_vertices: Tensor, perm: np.ndarray | None = None,
+                 sph_center: Tensor | None = None):
         tv = tri_vertices.detach()
         if perm is None:
             perm = median_split(tv.cpu().numpy())
@@ -122,6 +133,10 @@ class Groups:
         srt = self.perm.sort(dim=1).values      # the padding repeats the last triangle
         self.count = (srt[:, 1:] != srt[:, :-1]).sum(1) + 1
         self.refit(tv)
+        c = np.zeros((0, 3)) if sph_center is None else sph_center.detach().cpu().numpy()
+        self.n_spheres = c.shape[0]
+        self.sph_perm = torch.as_tensor(median_split(c[:, None], SPH_GROUP),
+                                        device=tv.device).reshape(-1, SPH_GROUP)
 
     def refit(self, tri_vertices: Tensor) -> None:
         """Boxes of the groups over the current vertices."""
@@ -152,13 +167,8 @@ class Reference:
 
     def scene(self, arrays: dict) -> dict:
         """The scene arrays as tensors of the reference's dtype and device."""
-        s = {k: ({m: self.tensor(x) for m, x in v.items()} if isinstance(v, dict)
-                 else self.tensor(v)) for k, v in arrays.items()}
-        for k in ("sph_center", "sph_radius", "sph_color"):
-            s.setdefault(k, self.tensor(np.zeros((0, 3) if k != "sph_radius" else (0,))))
-        s.setdefault("sph_materials", {k: self.tensor(np.zeros(0))
-                                       for k in s["tri_materials"]})
-        return s
+        return {k: ({m: self.tensor(x) for m, x in v.items()} if isinstance(v, dict)
+                    else self.tensor(v)) for k, v in arrays.items()}
 
     # ------------------------------------------------------------------
     # hit selection (no gradient)
@@ -171,13 +181,12 @@ class Reference:
         if any_mode:
             occ = i_tri >= 0
             if s["sph_center"].shape[0]:
-                occ |= torch.isfinite(self._sph_t(s, ro, rd)).any(1)
+                occ |= self._sph_closest(s, groups, ro, rd, any_mode)[1] >= 0
             return occ
         fam = torch.where(i_tri >= 0, 1, 0)
         t, idx = t_tri, i_tri.clamp(min=0)
         if s["sph_center"].shape[0]:
-            ts = self._sph_t(s, ro, rd)
-            tsb, isb = ts.min(1)
+            tsb, isb = self._sph_closest(s, groups, ro, rd, any_mode)
             closer = tsb < t
             t = torch.where(closer, tsb, t)
             fam = torch.where(closer, 2, fam)
@@ -185,11 +194,16 @@ class Reference:
         return t, fam, idx
 
     def _sph_t(self, s, ro, rd):
-        """(R, S) nearest valid root per sphere, inf where none."""
+        """(R, S) nearest valid root per sphere, inf where none: every ray
+        against every sphere (the search ``_sph_closest`` blocks)."""
         c, rad = s["sph_center"].detach(), s["sph_radius"].detach()
-        cv = ro[:, None] - c[None]
-        b2 = 2.0 * _dot(cv, rd[:, None])
-        c2 = _dot(cv, cv) - rad[None] ** 2
+        return self._sph_roots(ro[:, None] - c[None], rd[:, None], rad[None])
+
+    def _sph_roots(self, cv, rd, rad):
+        """The nearest root above ``smallest_dist`` of each (ray, sphere)
+        pair, inf where none: ``cv`` is origin - centre, all broadcast."""
+        b2 = 2.0 * _dot(cv, rd)
+        c2 = _dot(cv, cv) - rad ** 2
         disc = b2 * b2 - 4.0 * c2
         ok = disc >= 0
         sq = torch.sqrt(torch.where(ok, disc, torch.zeros_like(disc)))
@@ -199,45 +213,81 @@ class Reference:
             best = torch.minimum(best, torch.where(ok & (root > eps), root, INF))
         return best
 
+    def _sph_closest(self, s, groups: Groups, ro, rd, any_mode: bool):
+        """Per ray the nearest sphere's (t, index), -1 where none; the
+        lowest index among equal t, as ``_sph_t(...).min(1)`` picks."""
+        c, rad = s["sph_center"].detach(), s["sph_radius"].detach()
+        if groups.n_spheres != c.shape[0]:
+            raise ValueError(f"groups of {groups.n_spheres} spheres for a scene of {c.shape[0]}")
+        perm = groups.sph_perm
+        lo = (c[perm] - rad[perm][..., None]).amin(1)
+        hi = (c[perm] + rad[perm][..., None]).amax(1)
+
+        def pair_t(sph, o, d):
+            return self._sph_roots(o[:, None] - c[sph], d[:, None], rad[sph])
+
+        return self._search(perm, lo, hi, ro, rd, pair_t, any_mode, SPH_MARGIN[self.dtype])
+
     def _tri_closest(self, tv: Tensor, groups: Groups, ro: Tensor, rd: Tensor, any_mode: bool):
-        r = ro.shape[0]
-        best_t = torch.full((r,), INF, dtype=self.dtype, device=self.device)
-        best_i = torch.full((r,), -1, dtype=torch.int64, device=self.device)
-        if tv.shape[0] == 0 or r == 0:
-            return best_t, best_i
         q = self.q
         a = q(tv[:, 0])
         e1 = q(tv[:, 0] - tv[:, 1])
         e2 = q(tv[:, 0] - tv[:, 2])
         n = q(_cross(e1, e2))
         eps, det_eps = self.cfg["smallest_dist"], self.cfg["det_epsilon"]
-        lo, hi = groups.lo, groups.hi
+
+        def pair_t(tri, o, d):
+            oq, dq = q(o)[:, None], q(d)[:, None]
+            sv = q(a[tri] - oq)
+            nt = n[tri]
+            det = _dot(nt, dq)
+            ok = torch.abs(det) >= det_eps
+            det_s = torch.where(ok, det, torch.ones_like(det))
+            t = _dot(sv, nt) / det_s
+            beta = _dot(q(_cross(sv, e2[tri])), dq) / det_s
+            gamma = _dot(q(_cross(e1[tri], sv)), dq) / det_s
+            ok &= (beta > 0) & (gamma > 0) & (beta + gamma < 1) & (t > eps)
+            return torch.where(ok, t, INF)
+
+        return self._search(groups.perm, groups.lo, groups.hi, ro, rd, pair_t, any_mode)
+
+    def _search(self, perm, lo, hi, ro, rd, pair_t, any_mode: bool, margin: float = 0.0):
+        """Per ray (t, index) of the nearest hit among the primitives of the
+        groups ``perm`` (G, size) whose boxes (lo, hi) (G, 3) its line enters,
+        each box grown by ``margin`` times its distance from the ray's origin;
+        index -1 where none, in ``any_mode`` 0 where any. ``pair_t(members,
+        o, d)`` gives the (P, size) hit distances (inf: none) of P rays
+        against their groups' members. Blocks of at most ``SLAB_ELEMS``
+        (ray, group) and ``PAIR_TESTS`` (ray, primitive) tests."""
+        r = ro.shape[0]
+        best_t = torch.full((r,), INF, dtype=self.dtype, device=self.device)
+        best_i = torch.full((r,), -1, dtype=torch.int64, device=self.device)
+        if perm.shape[0] == 0 or r == 0:
+            return best_t, best_i
         g = lo.shape[0]
         pad = PAD[self.dtype]
         block = max(1, SLAB_ELEMS // g)
+        if margin:
+            mid, half = (lo + hi) / 2, torch.linalg.vector_norm(hi - lo, dim=-1) / 2
         for r0 in range(0, r, block):
             o, d = ro[r0:r0 + block], rd[r0:r0 + block]
-            tn, tf = slab(o[:, None], _inv(d)[:, None], lo[None], hi[None])
+            blo, bhi = lo[None], hi[None]
+            if margin:
+                m = margin * (torch.linalg.vector_norm(o[:, None] - mid[None], dim=-1)
+                              + half[None])[..., None]
+                blo, bhi = blo - m, bhi + m
+            tn, tf = slab(o[:, None], _inv(d)[:, None], blo, bhi)
             rr, gg = torch.nonzero(tf * (1.0 + pad) + pad >= tn, as_tuple=True)
             ts, idxs, rays = [], [], []
-            step = max(1, PAIR_TESTS // GROUP)
+            step = max(1, PAIR_TESTS // perm.shape[1])
             for p0 in range(0, rr.shape[0], step):
                 ri, gi = rr[p0:p0 + step], gg[p0:p0 + step]
-                tri = groups.perm[gi]                                   # (P, GROUP)
-                oq, dq = q(o[ri])[:, None], q(d[ri])[:, None]
-                sv = q(a[tri] - oq)
-                nt = n[tri]
-                det = _dot(nt, dq)
-                ok = torch.abs(det) >= det_eps
-                det_s = torch.where(ok, det, torch.ones_like(det))
-                t = _dot(sv, nt) / det_s
-                beta = _dot(q(_cross(sv, e2[tri])), dq) / det_s
-                gamma = _dot(q(_cross(e1[tri], sv)), dq) / det_s
-                ok &= (beta > 0) & (gamma > 0) & (beta + gamma < 1) & (t > eps)
-                t = torch.where(ok, t, INF)
+                members = perm[gi]                                      # (P, size)
+                t = pair_t(members, o[ri], d[ri])
                 tmin = t.amin(1)
                 # the lowest original index among a group's equal minima
-                imin = torch.where(t == tmin[:, None], tri, tri.new_full((), 1 << 62)).amin(1)
+                imin = torch.where(t == tmin[:, None], members,
+                                   members.new_full((), 1 << 62)).amin(1)
                 hit = torch.isfinite(tmin)
                 ts.append(tmin[hit])
                 idxs.append(imin[hit])

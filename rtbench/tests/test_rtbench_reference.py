@@ -6,7 +6,7 @@ import numpy as np
 import pytest
 import torch
 
-from rtbench import manifest, scene
+from rtbench import manifest, reference, scene
 from rtbench.reference import Groups, Reference, median_split, tf32
 from rtbench.tests.conftest import tiny
 from rtbench.workload import program_camera, program_scene
@@ -52,7 +52,8 @@ def ref_render(arrays, cam, depth, lowp=False):
     ref = Reference(dict(max_depth=depth), "cpu", lowp=lowp)
     rs = ref.scene(arrays)
     ro, rd = ref.camera_rays(cam, W, H, torch.arange(W * H))
-    return ref.trace(rs, ro, rd, Groups(rs["tri_vertices"])).clamp(0, 1).double()
+    groups = Groups(rs["tri_vertices"], sph_center=rs["sph_center"])
+    return ref.trace(rs, ro, rd, groups).clamp(0, 1).double()
 
 
 @pytest.mark.parametrize("position", [[60.0, 60.0, 0.0], [0.0, 6.0, 14.0]])
@@ -156,3 +157,88 @@ def test_the_seed_draws_the_orbits_phases():
 def test_tiny_overrides_cut_the_mesh():
     arrays = scene.scene_arrays(dict(bob(), **tiny("bob_1080p")))
     assert arrays["tri_vertices"].shape[0] < 1000
+
+
+def random_spheres(n: int, seed: int) -> tuple[dict, torch.Tensor, torch.Tensor]:
+    """A scene of ``n`` seeded spheres and 40 triangles in a box of side 20,
+    and 600 rays: from anywhere, at sphere centres, and grazing spheres (at
+    their radius from the centre, to rounding)."""
+    g = np.random.default_rng(seed)
+    tv = g.uniform(-10, 10, (40, 1, 3)) + g.uniform(-2, 2, (40, 3, 3))
+    c, r = g.uniform(-10, 10, (n, 3)), g.uniform(0.05, 2.0, n)
+    arrays = dict(tri_vertices=tv, sph_center=c, sph_radius=r)
+    ro = g.uniform(-14, 14, (600, 3))
+    d = g.normal(size=(600, 3))
+    if n:
+        k = g.integers(0, n, 400)
+        d[:200] = c[k[:200]] - ro[:200]
+        u = np.cross(d[200:400], g.normal(size=(200, 3)))
+        u /= np.linalg.norm(u, axis=1, keepdims=True)
+        ro[200:400] = c[k[200:]] + r[k[200:], None] * u - 30 * d[200:400] / np.linalg.norm(
+            d[200:400], axis=1, keepdims=True)
+    return arrays, torch.as_tensor(ro), torch.as_tensor(d / np.linalg.norm(d, axis=1, keepdims=True))
+
+
+@pytest.mark.parametrize("lowp", [False, True])
+@pytest.mark.parametrize("n", [0, 1, 33, 300])
+def test_the_blocked_sphere_search_is_the_all_pairs_search(n, lowp, monkeypatch):
+    """Groups of 4 spheres, blocks of 2-64 rays and steps of 8 (ray, group)
+    pairs: every group, block and step boundary is crossed."""
+    monkeypatch.setattr(reference, "SPH_GROUP", 4)
+    monkeypatch.setattr(reference, "SLAB_ELEMS", 160)
+    monkeypatch.setattr(reference, "PAIR_TESTS", 32)
+    arrays, ro, rd = random_spheres(n, seed=n)
+    ref = Reference({}, "cpu", lowp=lowp)
+    s = {k: ref.tensor(v) for k, v in arrays.items()}
+    ro, rd = ro.to(ref.dtype), rd.to(ref.dtype)
+    groups = Groups(s["tri_vertices"], sph_center=s["sph_center"])
+    assert groups.sph_perm.shape == (-(-n // 4), 4)
+    t, fam, idx = ref.closest(s, groups, ro, rd)
+    occ = ref.closest(s, groups, ro, rd, any_mode=True)
+    # the all-pairs search, as the reference searched spheres before it was blocked
+    t_all, i_tri = ref._tri_closest(s["tri_vertices"], groups, ro, rd, False)
+    fam_all, idx_all = torch.where(i_tri >= 0, 1, 0), i_tri.clamp(min=0)
+    occ_all = i_tri >= 0
+    if n:
+        ts = ref._sph_t(s, ro, rd)
+        tsb, isb = ts.min(1)
+        closer = tsb < t_all
+        t_all = torch.where(closer, tsb, t_all)
+        fam_all = torch.where(closer, 2, fam_all)
+        idx_all = torch.where(closer, isb, idx_all)
+        occ_all = occ_all | torch.isfinite(ts).any(1)
+        t_s, i_s = ref._sph_closest(s, groups, ro, rd, False)
+        assert torch.equal(t_s, tsb)
+        assert torch.equal(i_s, torch.where(torch.isfinite(tsb), isb, -1))
+        assert int((fam == 2).sum()) > 100
+    assert torch.equal(t, t_all) and torch.equal(fam, fam_all) and torch.equal(idx, idx_all)
+    assert torch.equal(occ, occ_all)
+
+
+def test_groups_without_the_scene_s_spheres_are_refused():
+    arrays, ro, rd = random_spheres(5, seed=1)
+    ref = Reference({}, "cpu")
+    s = {k: ref.tensor(v) for k, v in arrays.items()}
+    with pytest.raises(ValueError, match="groups of 0 spheres for a scene of 5"):
+        ref.closest(s, Groups(s["tri_vertices"]), ro, rd)
+
+
+@pytest.mark.parametrize("lowp", [False, True])
+def test_the_sphere_boxes_keep_the_rays_the_sphere_test_passes_by_rounding(lowp, monkeypatch):
+    """Rays along y, 100 from a sphere of radius 0.05, missing it by 1e-12
+    to 3e-3: in float32 the sphere test passes them all (its discriminant
+    loses the gap to |origin - centre|^2). The grown box keeps every ray the
+    all-pairs test passes; the bare box drops them."""
+    ref = Reference({}, "cpu", lowp=lowp)
+    gap = np.array([1e-12, 1e-9, 1e-5, 1e-3, 3e-3])
+    ro = ref.tensor(np.stack([0.05 + gap, np.full(5, -100.0), np.zeros(5)], 1))
+    rd = ref.tensor(np.tile([0.0, 1.0, 0.0], (5, 1)))
+    s = dict(tri_vertices=ref.tensor(np.zeros((0, 3, 3))), sph_center=ref.tensor([[0.0, 0.0, 0.0]]),
+             sph_radius=ref.tensor([0.05]))
+    groups = Groups(s["tri_vertices"], sph_center=s["sph_center"])
+    t_all = ref._sph_t(s, ro, rd)[:, 0]
+    assert torch.equal(ref._sph_closest(s, groups, ro, rd, False)[0], t_all)
+    if lowp:
+        assert bool(torch.isfinite(t_all).all())
+        monkeypatch.setattr(reference, "SPH_MARGIN", {torch.float32: 0.0})
+        assert not bool(torch.isfinite(ref._sph_closest(s, groups, ro, rd, False)[0]).any())

@@ -67,9 +67,14 @@ def program_scene(arrays: dict, device):
     def t(x):
         return torch.as_tensor(x, dtype=torch.float32, device=device)
 
+    def mats(m):
+        return Materials(**{k: t(v) for k, v in m.items()})
+
     return dataclasses.replace(
         b.build(), tri_vertices=t(arrays["tri_vertices"]), tri_colors=t(arrays["tri_colors"]),
-        tri_materials=Materials(**{k: t(v) for k, v in arrays["tri_materials"].items()}))
+        tri_materials=mats(arrays["tri_materials"]), sph_center=t(arrays["sph_center"]),
+        sph_radius=t(arrays["sph_radius"]), sph_color=t(arrays["sph_color"]),
+        sph_materials=mats(arrays["sph_materials"]))
 
 
 def program_camera(cam: dict, width: int, height: int, device):
@@ -154,7 +159,7 @@ class Orbit(Loop):
         pixels the orbit's frames ``frames`` keep."""
         ref = self.reference(lowp)
         rs = ref.scene(self.arrays)
-        groups = Groups(rs["tri_vertices"])
+        groups = Groups(rs["tri_vertices"], sph_center=rs["sph_center"])
         rays = [ref.camera_rays(self.view(int(f)), self.width, self.height,
                                 self.pixels[int(f) % PIXEL_ROWS]) for f in frames]
         ro, rd = torch.cat([r[0] for r in rays]), torch.cat([r[1] for r in rays])
@@ -299,7 +304,7 @@ class Fit(Loop):
         root), as the program's ``torch.optim.Adam``."""
         ref = self.reference(lowp)
         rs = ref.scene(self.arrays)
-        groups = Groups(rs["tri_vertices"])
+        groups = Groups(rs["tri_vertices"], sph_center=rs["sph_center"])
         pix = torch.arange(self.width * self.height, device=self.device)
         ro, rd = ref.camera_rays(self.camera(), self.width, self.height, pix)
         tgt = dict(rs, tri_colors=self.target_colors.to(ref.dtype),
